@@ -8,7 +8,9 @@ its per-level seam masks into a state dict for the port's
 
     builder.load_state_dict(frame_builder_state_dict(params, seam_levels))
 
-Both packages then stitch with the very same gather maps.  The config
+Both packages then stitch with the very same gather maps.
+`stitch_maps_state_dict` carries only the stitch maps (and the seam masks
+they give), for `load_state_dict(..., strict=False)`.  The config
 dataclasses are shared as they are and need no conversion.
 """
 
@@ -47,4 +49,23 @@ def frame_builder_state_dict(
     }
     for lvl, m in enumerate(seam_levels):
         state[f"seam_{lvl}"] = torch.from_numpy(np.ascontiguousarray(m, dtype=bool))
+    return state
+
+
+_MAP_KEYS = ("sensor", "u", "v", "scale", "valid")
+
+
+def stitch_maps_state_dict(
+    maps: Mapping[str, np.ndarray], levels: int
+) -> dict[str, torch.Tensor]:
+    """State dict of the builder's stitch maps, from the reference builder's
+    `sensor`, `u`, `v`, `scale` and `valid` (numpy arrays of any integer /
+    float width), and of the `levels` per-level seam masks they give."""
+    from rgbd360_tpu_torch.ops import stitch
+    from rgbd360_tpu_torch.registration import dense
+
+    state = frame_builder_state_dict({k: maps[k] for k in _MAP_KEYS}, [])
+    seam = stitch.seam_mask_from_maps(stitch.StitchMaps(**state), 1)
+    for lvl, m in enumerate(dense.seam_masks_per_level(seam, levels)):
+        state[f"seam_{lvl}"] = m
     return state

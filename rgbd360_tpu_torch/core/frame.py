@@ -3,9 +3,10 @@
 
 A raw rig capture (8 RGB-D images) becomes undistorted per-sensor depth,
 then the stitched spherical RGB / gray / depth images, and, through
-`build_with_pyramid`, the frame's alignment pyramid.  The per-sensor cloud
-stage of the reference is not ported yet: tracking reads only the sphere's
-gray and depth.
+`build_with_pyramid`, the frame's alignment pyramid; `build_gray_depth_batch`
+builds the gray and depth spheres of a batch of captures.  The per-sensor
+cloud stage of the reference is not ported yet (nor `build_batch`, which
+needs it): tracking reads only the sphere's gray and depth.
 """
 
 from __future__ import annotations
@@ -111,27 +112,27 @@ class FrameBuilder(nn.Module):
             for lvl in range(self.config.dense.pyramid_levels)
         )
 
-    def _undistort_stage(self, rgb: torch.Tensor, depth_raw: torch.Tensor):
+    def _undistort_depth(self, depth_raw: torch.Tensor) -> torch.Tensor:
         """dtype normalization (u16 mm -> f32 m, multiplied in f32) and CLAMS
-        depth undistortion."""
-        if rgb.dtype != torch.float32:
-            rgb = rgb.to(torch.float32)
+        undistortion of (..., S, H, W) depth."""
         if depth_raw.dtype != torch.float32:
             depth_raw = depth_raw.to(torch.float32) * 0.001
         if self.clams_bin_depth is None:
-            return rgb, depth_raw
-        depth = undistort_ops.undistort_depth_pixeltab(
+            return depth_raw
+        return undistort_ops.undistort_depth_pixeltab(
             depth_raw, self.clams_m_img, self.clams_c_img, self.clams_bin_depth
         )
-        return rgb, depth
 
-    def _build_impl(self, rgb: torch.Tensor, depth_raw: torch.Tensor) -> SphereFrame:
+    def _check_device(self, rgb: torch.Tensor, depth_raw: torch.Tensor) -> None:
         if rgb.device != self.sensor.device or depth_raw.device != self.sensor.device:
             raise ValueError(
                 f"frame on {rgb.device}/{depth_raw.device}, builder on "
                 f"{self.sensor.device}: move one of them first"
             )
-        rgb, depth = self._undistort_stage(rgb, depth_raw)
+
+    def _build_impl(self, rgb: torch.Tensor, depth_raw: torch.Tensor) -> SphereFrame:
+        self._check_device(rgb, depth_raw)
+        depth = self._undistort_depth(depth_raw)
         sphere_rgb, sphere_depth = stitch_ops.stitch(self.maps, rgb, depth)
         return SphereFrame(
             sphere_rgb=sphere_rgb,
@@ -144,6 +145,18 @@ class FrameBuilder(nn.Module):
 
     def build_from_raw(self, raw) -> SphereFrame:
         return self.build(RigFrame.from_raw(raw, self.sensor.device))
+
+    def build_gray_depth_batch(
+        self, rgbs: torch.Tensor, depths_raw: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sphere_gray (B, H', W'), sphere_depth (B, H', W')) of B raw
+        captures, rgbs (B, S, H, W, 3) u8 BGR, depths_raw (B, S, H, W) u16
+        mm: gray per sensor from the raw capture, then ONE stitch gather for
+        the batch (the reference's `_build_gray_depth_batch_impl`)."""
+        self._check_device(rgbs, depths_raw)
+        return stitch_ops.stitch_gray_depth_batch(
+            self.maps, stitch_ops.rgb_to_gray(rgbs), self._undistort_depth(depths_raw)
+        )
 
     def build_with_pyramid(self, frame: RigFrame):
         """(SphereFrame, FramePyramid): the frame build and its alignment

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The `.cu` sources under `rgbd360_tpu_torch/csrc/` expose a plain C
-interface.  On first use `load()` compiles them with `nvcc` into one shared
+interface.  On first use `load()` compiles them with `nvcc`, one process
+per source, all started together, links the objects into one shared
 library under `build/rgbd360_tpu_torch/` of the checkout, named by a hash of
 the sources and flags (so an edited source builds anew), and loads it with
 `ctypes`.  No PyTorch headers are involved, which keeps the build to
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "rgbd360_tpu_torch"
 # reference, and --use_fast_math must never appear here.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-prec-div=true", "--fmad=false",
 ]
 
@@ -63,27 +64,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"librgbd360_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands as parallel processes; raise on the first failure,
+    after every process has ended."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        tmp = os.path.join(tmp_dir, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rgbd360_fused_gradients.argtypes = [p, p, p, i, i, i, p]
     lib.rgbd360_fused_gradients.restype = i
+    lib.rgbd360_pyr_down.argtypes = [p, p, i, i, i, i, p]
+    lib.rgbd360_pyr_down.restype = i
     lib.rgbd360_cuda_error_string.argtypes = [i]
     lib.rgbd360_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,10 +1,14 @@
 """Image pyramids and gradients for dense alignment (twin of
 `rgbd360_tpu/ops/pyramid.py`).
 
-* Gray pyramid: 5-tap binomial pyrDown, as two banded constant matmuls
-  A @ img @ B with circular wrap (correct in azimuth; the wrapped border
-  rows are harmless because row-border gradients are zeroed downstream).
-* Depth pyramid: 2x2 block mean over valid depths only.
+Every function takes one image (H, W) or a stack (B, H, W) of them.
+
+* Gray pyramid: 5-tap binomial pyrDown with circular wrap (correct in
+  azimuth; the wrapped border rows are harmless because row-border
+  gradients are zeroed downstream): kernel K2,
+  `ops/hopper_kernels.fused_pyr_down_circular`, for even shapes.
+* Depth pyramid: 2x2 block mean over valid depths only, as a banded matmul
+  sandwich over the depth sum and the valid count.
 * Gradients: the harmonic mean of forward and backward differences where
   the pixel lies strictly between its neighbours (kernel K1,
   `ops/hopper_kernels.fused_gradients`).  Border columns/rows are zeroed
@@ -23,10 +27,11 @@ from rgbd360_tpu_torch.ops import hopper_kernels
 _BINOMIAL5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
 
 
-@functools.lru_cache(maxsize=None)
-def _blur_decim_mats(h: int, w: int):
-    """Banded matrices of pyrDown: out = A @ img @ B, A (h/2, h) blurs and
-    decimates rows, B (w, w/2) columns, both with circular wrap."""
+@functools.lru_cache(maxsize=64)
+def _blur_decim_mats(h: int, w: int, device: torch.device):
+    """Banded matrices of the reference's pyrDown, out = A @ img @ B: A
+    (h/2, h) blurs and decimates rows, B (w, w/2) columns, both with
+    circular wrap; on `device`, made once."""
     k = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float64) / 16.0
     a = np.zeros((h // 2, h), np.float32)
     for t in range(5):
@@ -36,35 +41,27 @@ def _blur_decim_mats(h: int, w: int):
     for t in range(5):
         for j in range(w // 2):
             b[(2 * j + t - 2) % w, j] += k[t]
-    return a, b
+    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
 
 
-@functools.lru_cache(maxsize=None)
-def _box_sum_mats(h: int, w: int):
+@functools.lru_cache(maxsize=64)
+def _box_sum_mats(h: int, w: int, device: torch.device):
     """0/1 matrices whose sandwich product is the 2x2 block sum:
-    A2 (h/2, h), B2 (w, w/2)."""
+    A2 (h/2, h), B2 (w, w/2), on `device`, made once."""
     a = np.zeros((h // 2, h), np.float32)
     a[np.arange(h // 2), 2 * np.arange(h // 2)] = 1.0
     a[np.arange(h // 2), 2 * np.arange(h // 2) + 1] = 1.0
     b = np.zeros((w, w // 2), np.float32)
     b[2 * np.arange(w // 2), np.arange(w // 2)] = 1.0
     b[2 * np.arange(w // 2) + 1, np.arange(w // 2)] = 1.0
-    return a, b
-
-
-@functools.lru_cache(maxsize=None)
-def _level_down_mats(h: int, w: int):
-    """Channel-stacked level-transition matrices: channel 0 blurs and
-    decimates (gray), channels 1-2 block-sum (depth sum, valid count)."""
-    a_blur, b_blur = _blur_decim_mats(h, w)
-    a_box, b_box = _box_sum_mats(h, w)
-    return np.stack([a_blur, a_box, a_box]), np.stack([b_blur, b_box, b_box])
+    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
 
 
 @functools.lru_cache(maxsize=64)
-def _on_device(fn, h: int, w: int, device: torch.device):
-    """The matrices of `fn(h, w)` as tensors on `device`, made once."""
-    return tuple(torch.from_numpy(m).to(device) for m in fn(h, w))
+def _box_sum_stacks(h: int, w: int, n: int, device: torch.device):
+    """`_box_sum_mats` stacked n times, (n, h/2, h) and (n, w, w/2), for
+    one plain `bmm` pair over n channels."""
+    return tuple(m.expand(n, *m.shape).contiguous() for m in _box_sum_mats(h, w, device))
 
 
 def _sep_filter5(img: torch.Tensor) -> torch.Tensor:
@@ -72,53 +69,66 @@ def _sep_filter5(img: torch.Tensor) -> torch.Tensor:
     k = [float(x) for x in _BINOMIAL5]
     acc = k[2] * img
     for i, wt in ((1, k[1]), (2, k[0])):
-        acc = acc + wt * (torch.roll(img, i, dims=0) + torch.roll(img, -i, dims=0))
+        acc = acc + wt * (torch.roll(img, i, dims=-2) + torch.roll(img, -i, dims=-2))
     img = acc
     acc = k[2] * img
     for i, wt in ((1, k[1]), (2, k[0])):
-        acc = acc + wt * (torch.roll(img, i, dims=1) + torch.roll(img, -i, dims=1))
+        acc = acc + wt * (torch.roll(img, i, dims=-1) + torch.roll(img, -i, dims=-1))
     return acc
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """cv::pyrDown equivalent: blur, then keep even rows and columns."""
-    h, w = img.shape
+    """cv::pyrDown equivalent: blur, then keep even rows and columns; one
+    K2 launch for the whole stack."""
+    h, w = img.shape[-2:]
     if h % 2 == 0 and w % 2 == 0 and h >= 6 and w >= 6:
-        a, b = _on_device(_blur_decim_mats, h, w, img.device)
-        return (a @ img) @ b
-    return _sep_filter5(img)[::2, ::2]
+        out = hopper_kernels.fused_pyr_down_circular(img.reshape(-1, h, w).contiguous())
+        return out.reshape(*img.shape[:-2], h // 2, w // 2)
+    return _sep_filter5(img)[..., ::2, ::2]
+
+
+def _valid_mean(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return torch.where(n > 0.5, s / torch.clamp(n, min=1.0), 0.0)
 
 
 def pyr_down_depth(
     depth: torch.Tensor, min_depth: float, max_depth: float
 ) -> torch.Tensor:
     """2x2 valid-mean downsample (reference `buildPyramidRange`)."""
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     valid = (depth > min_depth) & (depth < max_depth)
     masked = torch.where(valid, depth, 0.0)
     if h % 2 == 0 and w % 2 == 0 and h >= 2 and w >= 2:
-        a, b = _on_device(_box_sum_mats, h, w, depth.device)
-        s = (a @ masked) @ b
-        n = (a @ valid.to(depth.dtype)) @ b
-        return torch.where(n > 0.5, s / torch.clamp(n, min=1.0), 0.0)
+        a, b = _box_sum_mats(h, w, depth.device)
+        return _valid_mean((a @ masked) @ b, (a @ valid.to(depth.dtype)) @ b)
     h2, w2 = h // 2, w // 2
-    s = masked[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2).sum(dim=(1, 3))
-    n = valid[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2).sum(dim=(1, 3))
+    lead = depth.shape[:-2]
+    s = masked[..., : h2 * 2, : w2 * 2].reshape(*lead, h2, 2, w2, 2).sum(dim=(-3, -1))
+    n = valid[..., : h2 * 2, : w2 * 2].reshape(*lead, h2, 2, w2, 2).sum(dim=(-3, -1))
     return torch.where(n > 0, s / torch.clamp(n, min=1), 0.0)
 
 
 def fused_level_down(
     gray: torch.Tensor, depth: torch.Tensor, min_depth: float, max_depth: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One pyramid level for gray AND depth in two batched matmuls (the
-    three sandwiches of `pyr_down` / `pyr_down_depth`, channel-stacked)."""
-    h, w = gray.shape
-    a, b = _on_device(_level_down_mats, h, w, gray.device)
+    """One pyramid level for gray AND depth: one K2 launch for the gray
+    stack, and one matmul sandwich over the depth sum and valid count
+    channels.  Each block-sum dot product has 2 nonzero addends per pass,
+    so the depth is bit-equal to the reference in any summation order.
+    Odd shapes (which no pyramid of the port reaches) keep the reference's
+    banded-matmul gray, whose output is (H//2, W//2)."""
+    h, w = gray.shape[-2:]
     valid = (depth > min_depth) & (depth < max_depth)
-    x = torch.stack([gray, torch.where(valid, depth, 0.0), valid.to(gray.dtype)])
-    out = torch.bmm(torch.bmm(a, x), b)
-    n = out[2]
-    return out[0], torch.where(n > 0.5, out[1] / torch.clamp(n, min=1.0), 0.0)
+    # (2B, H, W): the B depth sums, then the B valid counts
+    x = torch.cat([torch.where(valid, depth, 0.0), valid.to(depth.dtype)]).reshape(-1, h, w)
+    a, b = _box_sum_stacks(h, w, x.shape[0], depth.device)
+    out = torch.bmm(torch.bmm(a, x), b).reshape(2, *depth.shape[:-2], h // 2, w // 2)
+    if h % 2 == 0 and w % 2 == 0:
+        g2 = pyr_down(gray)
+    else:
+        a_g, b_g = _blur_decim_mats(h, w, gray.device)
+        g2 = (a_g @ gray) @ b_g
+    return g2, _valid_mean(out[0], out[1])
 
 
 def build_depth_pyramid(

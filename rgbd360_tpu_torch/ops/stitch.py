@@ -100,6 +100,12 @@ def seam_mask_from_maps(maps: StitchMaps, half_width: int = 1) -> torch.Tensor:
     return ~seam
 
 
+def _gather_index(maps: StitchMaps, sh: int, sw: int) -> torch.Tensor:
+    """(H', W') flat index into the (S, sh, sw) sensor stack of every
+    sphere pixel: one index serves every frame of a batch."""
+    return (maps.sensor.long() * sh + maps.v.long()) * sw + maps.u.long()
+
+
 def stitch(
     maps: StitchMaps, rgb: torch.Tensor, depth: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -107,16 +113,44 @@ def stitch(
 
     rgb: (S, H, W, 3) any dtype; depth: (S, H, W) float32 metres.
     Returns (sphere_rgb (H', W', 3) float32, sphere_depth (H', W'))."""
+    rgb_out, depth_out = stitch_batch(maps, rgb[None], depth[None])
+    return rgb_out[0], depth_out[0]
+
+
+def stitch_batch(
+    maps: StitchMaps, rgb: torch.Tensor, depth: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stitch a batch of rig captures with one gather.
+
+    rgb: (B, S, H, W, 3) any dtype; depth: (B, S, H, W) float32 metres.
+    Returns (sphere_rgb (B, H', W', 3) float32, sphere_depth (B, H', W'))."""
+    b, sh, sw = rgb.shape[0], rgb.shape[2], rgb.shape[3]
     pack = torch.cat(
         [rgb.to(torch.float32), depth[..., None].to(torch.float32)], dim=-1
-    )
-    sh, sw = rgb.shape[1], rgb.shape[2]
-    lin = (maps.sensor.long() * sh + maps.v.long()) * sw + maps.u.long()
-    vals = pack.reshape(-1, 4)[lin]  # (H', W', 4)
+    ).reshape(b, -1, 4)
+    vals = pack[:, _gather_index(maps, sh, sw)]  # (B, H', W', 4)
     rgb_out = torch.where(maps.valid[..., None], vals[..., :3], 0.0)
     d = vals[..., 3]
     depth_out = torch.where(maps.valid & (d > 0), d * maps.scale, 0.0)
     return rgb_out, depth_out
+
+
+def stitch_gray_depth_batch(
+    maps: StitchMaps, gray: torch.Tensor, depth: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stitch a batch of per-sensor GRAY + depth images with one gather
+    (tracking reads only the sphere's intensity and depth, so the gray
+    conversion happens per sensor, before the stitch).
+
+    gray: (B, S, H, W) float32 in [0, 1]; depth: (B, S, H, W) float32 metres.
+    Returns (sphere_gray (B, H', W'), sphere_depth (B, H', W'))."""
+    b, sh, sw = gray.shape[0], gray.shape[2], gray.shape[3]
+    pack = torch.stack([gray, depth], dim=-1).reshape(b, -1, 2)
+    vals = pack[:, _gather_index(maps, sh, sw)]  # (B, H', W', 2)
+    gray_out = torch.where(maps.valid, vals[..., 0], 0.0)
+    d = vals[..., 1]
+    depth_out = torch.where(maps.valid & (d > 0), d * maps.scale, 0.0)
+    return gray_out, depth_out
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:

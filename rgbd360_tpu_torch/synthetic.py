@@ -23,6 +23,9 @@ from rgbd360_tpu_torch.calibration.spec import construction_spec_rt
 
 # synth_capture renders 240x320 QVGA sensors with these intrinsics
 _FULL = RigConfig()
+# The salient-pixel budget of the batched tracking path: the reference's
+# batch-4 pipeline bench (`bench.py:919`).
+BATCH_SALIENT_PIXELS = 16384
 # Octagon inradius.  In synth_capture's default 3 m room the reference's
 # dense aligner, started from identity, recovers only ~0.03 m of the first
 # 0.1 m step (measured at full size; see PERF.md); in a 5 m room it
@@ -113,3 +116,11 @@ def captures(n_frames: int, subsample: int = 1) -> list[tuple[np.ndarray, np.nda
             )
         )
     return out
+
+
+def walk_seeds(offsets) -> np.ndarray:
+    """(n, 4, 4) float32 poses translated by `offsets` metres along the
+    walk (the rig's x axis): the seeds of the batched alignments."""
+    seeds = np.tile(np.eye(4, dtype=np.float32), (len(offsets), 1, 1))
+    seeds[:, 0, 3] = offsets
+    return seeds

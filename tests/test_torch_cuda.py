@@ -49,3 +49,31 @@ def test_fused_gradients_rejects_what_the_kernel_does_not_take(cuda):
         HK.fused_gradients(x[:, :, ::2])
     with pytest.raises(ValueError):
         HK.fused_gradients(x[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("circular", [False, True], ids=["edge", "circular"])
+@pytest.mark.parametrize("shape", [(4, 320, 1920), (1, 40, 240), (2, 6, 8)])
+def test_fused_pyr_down_kernel_matches_plain(cuda, shape, circular):
+    x = _plateau_image(np.random.default_rng(1), shape).cuda()
+    kernel = HK.fused_pyr_down_circular if circular else HK.fused_pyr_down
+    before = HK.fused_pyr_down.launches
+    out = kernel(x)
+    ref = HK.fused_pyr_down_plain(x, circular)
+    torch.cuda.synchronize()
+    assert HK.fused_pyr_down.launches == before + 1
+    assert out.shape == (shape[0], shape[1] // 2, shape[2] // 2)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_fused_pyr_down_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 8, 8), device="cuda")
+    with pytest.raises(TypeError):
+        HK.fused_pyr_down(x.double())
+    with pytest.raises(ValueError):
+        HK.fused_pyr_down(torch.zeros((2, 8, 16), device="cuda")[:, :, ::2])
+    with pytest.raises(ValueError):
+        HK.fused_pyr_down_circular(torch.zeros((2, 7, 8), device="cuda"))
+    with pytest.raises(ValueError):
+        HK.fused_pyr_down(x[0])

@@ -144,10 +144,4 @@ def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError):
         aligner.align(tsrc, ttrg, occlusion=1)
     with pytest.raises(NotImplementedError):
-        aligner.coarse_errors(tsrc, ttrg, None)
-    with pytest.raises(NotImplementedError):
-        aligner.coarse_align(tsrc, ttrg, None)
-    with pytest.raises(NotImplementedError):
-        TD.batch_align_targets(aligner, tsrc, [ttrg], [np.eye(4)])
-    with pytest.raises(NotImplementedError):
         TD._pack_target({}, bilinear=True)

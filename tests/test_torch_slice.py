@@ -52,6 +52,46 @@ def test_smoke_slice_matches_golden_script():
     assert np.abs(got["hessians"] - h_ref).max() <= 1e-2 * np.abs(h_ref).max()
 
 
+def test_smoke_batch_matches_golden_script():
+    """`chip_smoke`'s batch phases (the port, on the CPU) and the golden
+    script's reference run, on the same synthetic inputs at a reduced size
+    (8x60x80 rig, 80x480 sphere, 3 levels) and the same stitch maps: every
+    golden key the port reproduces, with the golden's shapes, and the
+    golden's gates pass.  Measured within 1.6e-7 m of the reference."""
+    sub, levels = 4, 3
+    ref = torch_port_golden.batch_jax(sub, levels, jittered=False)
+    cfg = synthetic.config(sub, levels)
+    cal = synthetic.calibration(cfg.rig)
+    builder = FrameBuilder(cal, cfg)
+    from rgbd360_tpu.core.frame import FrameBuilder as JaxBuilder
+    from rgbd360_tpu_torch import convert
+
+    params = JaxBuilder(cal, cfg)._params
+    maps = {k: np.asarray(params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
+    builder.load_state_dict(convert.stitch_maps_state_dict(maps, levels), strict=False)
+    aligner = TD.DenseAligner(chip_smoke.batch_dense_config(cfg))
+    frames = [
+        RigFrame(torch.from_numpy(rgb), torch.from_numpy(d))
+        for rgb, d in synthetic.captures(chip_smoke.BATCH_FRAMES, sub)
+    ]
+    _, res = chip_smoke.track_batch(builder, aligner, *chip_smoke.batch_inputs(builder, frames))
+    got = chip_smoke._result_np(res, "batch")
+    targets, _ = chip_smoke.align_targets(builder, aligner, frames)
+    got.update(targets)
+    for k, v in got.items():
+        assert v.shape == ref[k].shape, (k, v.shape, ref[k].shape)
+    assert {k for k in ref if "branch" not in k} - set(got) == {"coarse_candidates"}
+    for prefix in ("batch", "targets"):
+        np.testing.assert_array_equal(got[f"{prefix}_iters"], ref[f"{prefix}_iters"])
+        dt, dr = chip_smoke._pose_gaps(got[f"{prefix}_poses"], ref[f"{prefix}_poses"])
+        assert dt < 1e-5 and dr < 1e-5, (prefix, dt, dr)
+        matched = chip_smoke._gate_branches(
+            prefix, got[f"{prefix}_poses"], ref[f"{prefix}_branch_poses"]
+        )
+        np.testing.assert_array_equal(matched, 0)
+    chip_smoke.check_coarse(got, ref)
+
+
 def test_entry_forward_twin():
     """`entry()`'s fwd (pyramids of both frames with uniform seam masks,
     then the 3-level PHOTO_DEPTH alignment) on `_synthetic_pair` at 64x384

@@ -35,13 +35,29 @@ e. the batched tracking path at full size (the reference's batch-4
    4-frame batch, frames/s;
 f. `batch_align_targets` of frame 4 against frames 0-3 (golden, and four
    unbatched `align` calls), and `coarse_errors` / `coarse_align` of frame
-   1 against frame 0 over 8 yaw hypotheses (golden).
+   1 against frame 0 over 8 yaw hypotheses (golden);
+g. frame-to-frame odometry at full size with the default config (bilateral
+   on, dense sweeps): `FrameToFrameOdometry(FrameBuilder(...))` takes the 6
+   captures, each through `process(raw)` (build, 8x120x160 clouds, plane
+   segmentation, the pyramid, PbMap registration against the previous
+   frame, the dense seed chain).  Checked against the JAX golden
+   (`data/odometry_golden.npz`): every frame tracked with a 0.1 +- 0.02 m
+   axial step, `rel` within 5e-4 m and 2e-4 rad, the same seeds tried, the
+   same PbMap success and (where both succeed) pose, the same number of
+   valid planes, matched planes' normals, centres and areas; a second run
+   agrees with the first; K1 and K2 launched.  Timed: `process` and
+   `build_full` per frame, the tracker's stages, PbMap `register`; counted:
+   host syncs per frame (PyTorch's sync debug mode, which misses some, so a
+   lower bound), one profiled frame with its host waits and device-to-host
+   copies as the profiler sees them, and one profile of each of its stages
+   (the bilateral and the connected-component scans alone).
 Phases e and f stitch with the reference builder's maps
 (`data/reference_stitch_maps.npz`, see `load_reference_maps`), and each
 pose must lie on one of the golden's branches (see `_gate_branches`).
 
-The last two lines are a JSON line of per-kernel results and the contract
-line `{"ok": true, "device": {...}}`.
+The last two lines are a JSON line of per-kernel results (launch counts
+summed over the gated runs of phases d-g) and the contract line
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -52,20 +68,27 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from rgbd360_tpu_torch import convert, synthetic
-from rgbd360_tpu_torch.core.frame import FrameBuilder, RigFrame
+from rgbd360_tpu_torch.core.frame import FrameBuilder, RawRigFrame, RigFrame, downsample2_depth
 from rgbd360_tpu_torch.ops import _build, hopper_kernels as HK, se3
+from rgbd360_tpu_torch.ops import segmentation as seg_ops
+from rgbd360_tpu_torch.ops.bilateral import bilateral_depth
 from rgbd360_tpu_torch.registration import dense as D
+from rgbd360_tpu_torch.slam.odometry import FrameToFrameOdometry, fetch
+from rgbd360_tpu_torch.utils.trace import StageTimer
 
 DATA = Path(__file__).resolve().parent / "rgbd360_tpu_torch" / "data"
 GOLDEN = DATA / "smoke_golden.npz"
 BATCH_GOLDEN = DATA / "batch_golden.npz"
 REFERENCE_MAPS = DATA / "reference_stitch_maps.npz"
+ODOMETRY_GOLDEN = DATA / "odometry_golden.npz"
 N_FRAMES = 6
 BATCH_FRAMES = 5  # keyframe 0 and a batch of 4
 YAW_HYPOTHESES = 8
@@ -93,8 +116,24 @@ SWAP_TOL = 1e-6
 # tolerance of the NEAREST of the reference's solutions for micrometre
 # seed jitters (`tools/torch_port_golden.py`, JITTER_M).
 COARSE_ERR_RTOL = 1e-3  # a coarse error against its matched branch's
+# Phase g against the JAX golden.  The PbMap pose solves the same matches
+# from planes whose moments differ by ulps (bilateral exp, summation
+# order): measured on an H100 within 6.7e-7 m and 3.1e-6 rad (PERF.md).
+PB_TOL_M, PB_TOL_RAD = 1e-4, 1e-4
+# Matched planes (nearest centre): normal angle, centre distance, relative
+# area; measured on an H100 at 5.6e-4 rad, 7.1e-4 m and 1.7e-4.  Pixels on
+# a region's rim, whose neighbour gates sit at their thresholds, join or
+# leave it with ulps in the normals, and the hull's in-plane basis is an
+# eigenvector pair whose sign is free, so centres and areas move.
+PLANE_TOL_RAD, PLANE_TOL_M, PLANE_TOL_AREA = 2e-3, 2e-3, 1e-3
+# A seed against the golden's: the seeds are the last step (a `rel`) and
+# the PbMap pose, so they carry the looser of the two tolerances.
+SEED_TOL_M, SEED_TOL_RAD = GOLDEN_TOL_M, GOLDEN_TOL_RAD
 
 K1, K2 = HK.fused_gradients, HK.fused_pyr_down  # the launch counters
+
+
+TOTAL_LAUNCHES: Counter = Counter()  # over the gated runs of every phase
 
 
 def _reset_counts() -> None:
@@ -111,6 +150,7 @@ def _require_launches(counts: dict, phase: str) -> None:
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"{phase} never launched {missing}")
+    TOTAL_LAUNCHES.update(counts)
 
 
 def _median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -550,6 +590,256 @@ def check_coarse(got: dict, golden: dict) -> None:
     )
 
 
+def synthetic_raws(n_frames: int, subsample: int = 1) -> list:
+    """The synthetic captures as `RawRigFrame`s (host numpy), the input of
+    `FrameToFrameOdometry.process`."""
+    return [RawRigFrame(rgb=rgb, depth_mm=d) for rgb, d in synthetic.captures(n_frames, subsample)]
+
+
+def track_odometry(builder, raws, timer: StageTimer | None = None) -> dict:
+    """`FrameToFrameOdometry` over raw captures, each through `process`.
+    The seeds each frame's chain tried and the PbMap results are recorded
+    by wrapping the tracker's `aligner.align` and `plane_reg.register` (as
+    the golden tool does for the reference); everything recorded is fetched
+    after the run.  Returns the golden's keys, and `process_ms` per frame
+    (host clock, synchronized)."""
+    tracker = FrameToFrameOdometry(builder)
+    if timer is not None:
+        tracker.timer = timer
+    seeds, pbs, planes, ms = [], [], [], []
+    align, register = tracker.aligner.align, tracker.plane_reg.register
+
+    def record_align(src, trg, init_pose=None, *args, **kw):
+        seeds[-1].append(init_pose)
+        return align(src, trg, init_pose, *args, **kw)
+
+    def record_register(*args, **kw):
+        pbs.append(register(*args, **kw))
+        return pbs[-1]
+
+    tracker.aligner.align = record_align
+    tracker.plane_reg.register = record_register
+    for raw in raws:
+        seeds.append([])
+        t0 = time.perf_counter()
+        tracker.process(raw)
+        if builder.sensor.is_cuda:
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        planes.append(tracker.prev.planes)
+    pbs, planes, seeds = fetch(pbs), fetch(planes), fetch(seeds[1:])
+    stats = tracker.stats
+    out = {
+        "rel": np.stack([i["rel"] for i in stats]).astype(np.float32),
+        "tracked": np.array([i["tracked"] for i in stats]),
+        "pb_matches": np.array([i["pb_matches"] for i in stats]),
+        "av_depth_residual": np.array([i["av_depth_residual"] for i in stats]),
+        "sso": np.array([i["sso"] for i in stats]),
+        "pb_success": np.array([bool(p.success) for p in pbs]),
+        "pb_pose": np.stack([p.pose.numpy() for p in pbs]),
+        "pb_pairs": np.stack([p.pairs.numpy() for p in pbs]),
+        "seed_counts": np.array([len(x) for x in seeds]),
+        "seeds": np.stack([x.numpy() for f in seeds for x in f]),
+        "process_ms": np.array(ms),
+    }
+    for f in ("normal", "center", "area", "valid"):
+        out[f"planes_{f}"] = np.stack([getattr(p, f).numpy() for p in planes])
+    return out
+
+
+def _matched_plane_gaps(got: dict, golden: dict) -> tuple[float, float, float]:
+    """Largest normal angle (rad), centre distance (m) and relative area
+    gap between each golden valid plane and the port's valid plane of the
+    same frame with the nearest centre (slots of near-equal area may come
+    in another order)."""
+    worst = np.zeros(3)
+    for f in range(len(golden["planes_valid"])):
+        gv, pv = golden["planes_valid"][f], got["planes_valid"][f]
+        gc, pc = golden["planes_center"][f][gv], got["planes_center"][f][pv]
+        if len(gc) == 0 or len(pc) == 0:
+            continue
+        near = np.argmin(np.linalg.norm(gc[:, None] - pc[None], axis=-1), axis=1)
+        gn = golden["planes_normal"][f][gv].astype(np.float64)
+        pn = got["planes_normal"][f][pv][near].astype(np.float64)
+        # atan2(|a x b|, a . b): accurate for tiny angles, unlike arccos
+        ang = np.arctan2(np.linalg.norm(np.cross(gn, pn), axis=-1), np.sum(gn * pn, axis=-1)).max()
+        dc = np.linalg.norm(gc - pc[near], axis=-1).max()
+        ga, pa = golden["planes_area"][f][gv], got["planes_area"][f][pv][near]
+        da = (np.abs(ga - pa) / ga).max()
+        worst = np.maximum(worst, [ang, dc, da])
+    return tuple(float(x) for x in worst)
+
+
+def check_odometry(got: dict, golden: dict, what: str = "odometry") -> dict:
+    """Phase g's gates on one run against the golden; returns the gaps."""
+    rel, steps = got["rel"], got["rel"][:, 0, 3]
+    print(f"{what}: axial steps (m) {steps.tolist()} (golden "
+          f"{golden['rel'][:, 0, 3].tolist()}); PbMap matches {got['pb_matches'].tolist()} "
+          f"(golden {golden['pb_matches'].tolist()}); seeds tried "
+          f"{got['seed_counts'].tolist()}; valid planes "
+          f"{got['planes_valid'].sum(axis=1).tolist()}")
+    if not np.isfinite(rel).all():
+        raise AssertionError(f"{what}: non-finite pose")
+    if not got["tracked"].all() or not golden["tracked"].all():
+        raise AssertionError(f"{what}: untracked frames {got['tracked']} (golden {golden['tracked']})")
+    if np.abs(steps - STEP_M).max() > STEP_TOL_M:
+        raise AssertionError(f"{what}: axial steps {steps} not {STEP_M} +- {STEP_TOL_M} m")
+    dt, dr = _gate_gaps(f"{what} rel vs JAX golden", rel, golden["rel"], GOLDEN_TOL_M, GOLDEN_TOL_RAD)
+    if not np.array_equal(got["seed_counts"], golden["seed_counts"]):
+        raise AssertionError(f"{what}: seeds tried {got['seed_counts']}, golden {golden['seed_counts']}")
+    _gate_gaps(f"{what} seeds vs JAX golden", got["seeds"], golden["seeds"], SEED_TOL_M, SEED_TOL_RAD)
+    if not np.array_equal(got["pb_success"], golden["pb_success"]):
+        raise AssertionError(f"{what}: PbMap success {got['pb_success']}, golden {golden['pb_success']}")
+    both = got["pb_success"] & golden["pb_success"]
+    pb = (0.0, 0.0)
+    if both.any():
+        pb = _gate_gaps(f"{what} PbMap pose vs JAX golden", got["pb_pose"][both],
+                        golden["pb_pose"][both], PB_TOL_M, PB_TOL_RAD)
+    same_pairs = [bool(np.array_equal(a, b)) for a, b in zip(got["pb_pairs"], golden["pb_pairs"])]
+    print(f"{what}: PbMap pairs identical to the golden's on {sum(same_pairs)}/{len(same_pairs)} frames")
+    n_got, n_ref = got["planes_valid"].sum(axis=1), golden["planes_valid"].sum(axis=1)
+    if not np.array_equal(n_got, n_ref):
+        raise AssertionError(f"{what}: valid planes {n_got.tolist()}, golden {n_ref.tolist()}")
+    ang, dc, da = _matched_plane_gaps(got, golden)
+    print(f"{what}: matched planes vs JAX golden: normal {ang:.3e} rad (tol {PLANE_TOL_RAD}), "
+          f"centre {dc:.3e} m (tol {PLANE_TOL_M}), area {da:.3e} relative (tol {PLANE_TOL_AREA})")
+    if ang > PLANE_TOL_RAD or dc > PLANE_TOL_M or da > PLANE_TOL_AREA:
+        raise AssertionError(f"{what}: matched planes leave the tolerance")
+    return dict(rel_m=dt, rel_rad=dr, pb_m=pb[0], pb_rad=pb[1], plane_rad=ang,
+                plane_m=dc, plane_area=da)
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs in fn(), counted by PyTorch's sync debug mode: a lower
+    bound, since the mode does not yet see every synchronizing operation
+    (`_profile` counts the host waits the profiler records)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+REGIONS = {"build", "stitch", "cloud", "pyramid", "segment", "register", "align"}
+
+
+# CUDA runtime calls that block the host; `cudaDeviceSynchronize` is left
+# out, since the path never calls it and the profile's own closing
+# `torch.cuda.synchronize()` is one
+HOST_WAITS = {"cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy"}
+
+
+def _profile(fn) -> tuple[float, float, int, int, int]:
+    """(wall ms, device busy ms, device ops, host waits, device-to-host
+    copies) of one profiled call; busy is the union of the device events'
+    intervals, host waits the count of `HOST_WAITS` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # device events, without the GPU ranges of `record_function` regions
+    # (the tracker's StageTimer), which would count a region's span as busy
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in REGIONS]
+    busy, end = 0.0, -np.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    waits = sum(e.name in HOST_WAITS for e in prof.events())
+    d2h = sum(e.name.startswith("Memcpy DtoH") for e in events)
+    return wall, busy / 1e3, len(events), waits, d2h
+
+
+def check_odometry_phase(smi: str) -> None:
+    """Phase g: FrameToFrameOdometry at full size against the JAX golden."""
+    golden = dict(np.load(ODOMETRY_GOLDEN))
+    t0 = time.perf_counter()
+    cfg = synthetic.config()
+    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg).to("cuda")
+    raws = synthetic_raws(N_FRAMES)
+    print(f"odometry set-up (calibration maps, synthetic captures): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    first = track_odometry(builder, raws)  # warm-up, and the first of two runs
+    _reset_counts()
+    run = track_odometry(builder, raws)
+    _require_launches(_counts(), "odometry")
+    check_odometry(run, golden)
+    dt, dr = _pose_gaps(first["rel"], run["rel"])
+    print(f"odometry, two runs: rel gap {dt:.3e} m, {dr:.3e} rad")
+    if dt > SWAP_TOL or dr > SWAP_TOL:
+        raise AssertionError("two odometry runs give different poses")
+    for k in ("planes_valid", "pb_pairs", "seed_counts"):
+        if not np.array_equal(first[k], run[k]):
+            raise AssertionError(f"two odometry runs differ in {k}")
+
+    process_ms = statistics.median(run["process_ms"][1:])
+    frame = RigFrame(torch.from_numpy(raws[1].rgb).cuda(), torch.from_numpy(raws[1].depth_mm).cuda())
+    build_ms = statistics.median(_host_ms(lambda: builder.build_full(frame), reps=7))
+    print(f"odometry: process median {process_ms:.3f} ms per tracked frame "
+          f"(all {np.round(run['process_ms'], 3).tolist()}); build_full median "
+          f"{build_ms:.3f} ms per frame over 7, on {smi}")
+    timer = StageTimer(sync=True)
+    track_odometry(builder, raws, timer)
+    print(f"odometry stages (StageTimer(sync=True), {N_FRAMES} frames):\n{timer.report()}")
+    print(f"odometry: PbMap register {1e3 * timer.times['register'] / timer.counts['register']:.3f} "
+          f"ms per tracked frame (StageTimer)")
+
+    tracker = FrameToFrameOdometry(builder)
+    tracker.process(raws[0])
+    syncs = [_count_syncs(lambda r=r: tracker.process(r)) for r in raws[1:]]
+    planes = builder.build_full(frame)[2]
+    parts = {"build_full": _count_syncs(lambda: builder.build_full(frame)),
+             "register": _count_syncs(lambda: fetch(tracker.plane_reg.register(planes, planes)))}
+    print(f"odometry: host syncs per tracked frame (sync debug mode, a lower bound) "
+          f"{syncs}; of which build_full {parts['build_full']}, register + fetch "
+          f"{parts['register']}")
+
+    tracker = FrameToFrameOdometry(builder)
+    tracker.process(raws[0])
+    prev = tracker.prev
+    wall, busy, ops, waits, d2h = _profile(lambda: tracker.process(raws[1]))
+    print(f"odometry, one profiled frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall:.3f}, device ops {ops}, host waits {waits}, "
+          f"device-to-host copies {d2h}")
+    for name, fn in _odometry_stages(builder, tracker, prev, frame).items():
+        fn()
+        wall, busy, ops, waits, d2h = _profile(fn)
+        print(f"odometry stage {name}: wall {wall:.3f} ms (profiled), device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, device ops {ops}, "
+              f"host waits {waits}, device-to-host copies {d2h}")
+
+
+def _odometry_stages(builder, tracker, prev, frame) -> dict:
+    """The stages of a tracked frame (frame against `prev`, the tracker's
+    previous state) as calls, for one profile each: the two costliest of
+    the front end (the bilateral and the connected-component scans) alone."""
+    rig, seg_cfg = builder.config.rig, builder.config.seg
+    sphere, pyr, planes = builder.build_full(frame)
+    d_small = downsample2_depth(builder._undistort_depth(frame.depth))
+    _, compat_r, compat_c = seg_ops._compat_masks(sphere.local_xyz, sphere.cloud_valid, seg_cfg)
+    eye = torch.eye(4, device=frame.depth.device)
+    return {
+        "build (stitch + cloud)": lambda: builder.build(frame),
+        "bilateral": lambda: bilateral_depth(d_small, rig.bilateral_sigma_s, rig.bilateral_sigma_r),
+        "segment": lambda: builder.segment_planes(sphere),
+        "_connected_labels": lambda: seg_ops._connected_labels(
+            compat_r, compat_c, sphere.cloud_valid, seg_cfg.cc_iters),
+        "pyramid": lambda: builder.pyramid(sphere),
+        "register + fetch": lambda: fetch(tracker.plane_reg.register(prev.planes, planes)),
+        "align + fetch (identity seed)": lambda: fetch(
+            tracker.aligner.align(pyr, prev.pyramid, eye)),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on the card")
@@ -579,11 +869,14 @@ def main() -> int:
     print(f"batch set-up (calibration maps, synthetic captures): "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    bt = check_batch(*setup, smi)
+    check_batch(*setup, smi)
     print(f"phase e took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_targets(*setup)
     print(f"phase f took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_odometry_phase(smi)
+    print(f"phase g took {time.perf_counter() - t0:.1f} s")
 
     # the batch path's level-0 launches: K1 on (8, 320, 1920), K2 on (4, 320, 1920)
     k1_row = next(r for r in k1["rows"] if r["shape"] == (8, *LEVEL_SHAPES[0]))
@@ -594,7 +887,7 @@ def main() -> int:
             "route": "cuda",
             "source": "rgbd360_tpu_torch/csrc/fused_gradients.cu",
             "replaces": "rgbd360_tpu/ops/pallas_kernels.py:148",
-            "launches": bt["launches"]["fused_gradients"],
+            "launches": TOTAL_LAUNCHES["fused_gradients"],
             "max_abs_err": k1["max_abs_err"],
             "ms": k1_row["ms"],
             "plain_ms": k1_row["plain_ms"],
@@ -604,7 +897,7 @@ def main() -> int:
             "route": "cuda",
             "source": "rgbd360_tpu_torch/csrc/pyr_down.cu",
             "replaces": "rgbd360_tpu/ops/pallas_kernels.py:90",
-            "launches": bt["launches"]["fused_pyr_down"],
+            "launches": TOTAL_LAUNCHES["fused_pyr_down"],
             "max_abs_err": k2["max_abs_err"],
             "ms": k2_row["ms"],
             "plain_ms": k2_row["plain_ms"],

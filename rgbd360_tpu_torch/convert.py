@@ -12,6 +12,8 @@ Both packages then stitch with the very same gather maps.
 `stitch_maps_state_dict` carries only the stitch maps (and the seam masks
 they give), for `load_state_dict(..., strict=False)`.  The config
 dataclasses are shared as they are and need no conversion.
+`plane_set_from_numpy` and `plane_set_to_numpy` carry a plane set (the
+reference's `PlaneSet` with numpy fields) across, both ways.
 """
 
 from __future__ import annotations
@@ -69,3 +71,27 @@ def stitch_maps_state_dict(
     for lvl, m in enumerate(dense.seam_masks_per_level(seam, levels)):
         state[f"seam_{lvl}"] = m
     return state
+
+
+def plane_set_from_numpy(planes, device=None):
+    """The port's `ops.segmentation.PlaneSet` from a plane set whose fields
+    (attributes, or keys of a mapping) are numpy arrays: e.g. the
+    reference's `PlaneSet` after `jax.device_get`."""
+    import dataclasses
+
+    from rgbd360_tpu_torch.ops.segmentation import PlaneSet
+
+    get = planes.__getitem__ if isinstance(planes, Mapping) else planes.__getattribute__
+    return PlaneSet(**{
+        f.name: torch.from_numpy(np.array(get(f.name))).to(device)
+        for f in dataclasses.fields(PlaneSet)
+    })
+
+
+def plane_set_to_numpy(planes) -> dict[str, np.ndarray]:
+    """{field: numpy array} of the port's PlaneSet, on the host (the
+    reference's `PlaneSet(**{k: jnp.asarray(v) ...})` takes it back)."""
+    import dataclasses
+
+    return {f.name: getattr(planes, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(planes)}

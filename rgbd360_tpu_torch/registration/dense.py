@@ -456,6 +456,8 @@ class DenseAligner:
         if cfg.bilinear:
             raise NotImplementedError("bilinear target sampling is not ported yet")
         self.cfg = cfg
+        # the tracker reads it to choose the spherical yaw rescue
+        self.intrinsics = intrinsics
 
     def align(
         self,

@@ -1,0 +1,1 @@
+"""Trackers of the port (twins of `rgbd360_tpu/slam`)."""

@@ -2,6 +2,7 @@
 `chip_smoke.py` import with every jax import blocked, and `chip_smoke.py`
 refuses to run (non-zero exit, no result line) without a CUDA device."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -19,14 +20,19 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.convert",
     "rgbd360_tpu_torch.core.frame",
     "rgbd360_tpu_torch.ops._build",
+    "rgbd360_tpu_torch.ops.bilateral",
     "rgbd360_tpu_torch.ops.camera",
     "rgbd360_tpu_torch.ops.hopper_kernels",
     "rgbd360_tpu_torch.ops.pyramid",
     "rgbd360_tpu_torch.ops.se3",
+    "rgbd360_tpu_torch.ops.segmentation",
     "rgbd360_tpu_torch.ops.stitch",
     "rgbd360_tpu_torch.ops.undistort",
     "rgbd360_tpu_torch.registration.dense",
+    "rgbd360_tpu_torch.registration.planes",
+    "rgbd360_tpu_torch.slam.odometry",
     "rgbd360_tpu_torch.synthetic",
+    "rgbd360_tpu_torch.utils.trace",
     "chip_smoke",
 ]
 
@@ -64,6 +70,18 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(SLICE_MODULES)} modules" in proc.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """`chip_smoke.py` names no module of the JAX package (`rgbd360_tpu.*`)
+    nor jax itself: it reaches the reference's JAX-free helpers, if at all,
+    only through the port."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    tops = {name.split(".")[0] for name in names}
+    assert "rgbd360_tpu_torch" in tops
+    assert not tops & {"rgbd360_tpu", "jax", "jaxlib"}, sorted(names)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

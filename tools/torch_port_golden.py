@@ -23,6 +23,14 @@ only the files in `rgbd360_tpu_torch/data/`:
   (PERF.md, Findings).  So every batch golden is also written for jittered
   seeds (the `*_branch_*` keys; branch 0 unjittered, see `jitters`), and
   the port on the card must land on one of those solutions.
+* `odometry_golden.npz`, the reference `FrameToFrameOdometry` (default
+  config: bilateral on, dense sweeps) over the 6 captures, each through
+  `process(raw)`: per tracked frame the output (`rel`, `tracked`,
+  `pb_matches`, `av_depth_residual`, `sso`), the PbMap result (`pb_success`,
+  `pb_pose`, `pb_pairs`), the seeds the seed chain tried (`seeds`, cut by
+  `seed_counts`), and per frame the plane set (`planes_*`).  The seeds and
+  the PbMap result are recorded by wrapping the tracker's `aligner.align`
+  and `plane_reg.register` here; the reference package is not edited.
 * `reference_stitch_maps.npz`, the reference builder's stitch maps, which
   the batch phases load into the port's builder
   (`convert.stitch_maps_state_dict`): the two packages' maps differ on the
@@ -30,7 +38,7 @@ only the files in `rgbd360_tpu_torch/data/`:
   that into centimetres, so the batch goldens are compared on the same
   maps.
 
-    JAX_PLATFORMS=cpu python tools/torch_port_golden.py [--batch-only]
+    JAX_PLATFORMS=cpu python tools/torch_port_golden.py [--batch-only | --odometry-only]
 """
 
 from __future__ import annotations
@@ -53,7 +61,9 @@ import numpy as np  # noqa: E402
 from rgbd360_tpu.core.frame import FrameBuilder, RigFrame  # noqa: E402
 from rgbd360_tpu.ops import se3  # noqa: E402
 from rgbd360_tpu.ops import stitch as stitch_ops  # noqa: E402
+from rgbd360_tpu.io.bin_format import RawRigFrame  # noqa: E402
 from rgbd360_tpu.registration import dense as D  # noqa: E402
+from rgbd360_tpu.slam.odometry import FrameToFrameOdometry  # noqa: E402
 from rgbd360_tpu_torch import synthetic  # noqa: E402
 
 DATA = ROOT / "rgbd360_tpu_torch" / "data"
@@ -176,14 +186,70 @@ def batch_jax(subsample: int = 1, pyramid_levels: int = 5,
     return out
 
 
+def odometry_jax(n_frames: int = 6, subsample: int = 1, pyramid_levels: int = 5,
+                 config=None) -> dict:
+    """The reference's run of the smoke's odometry phase (see the module
+    doc); `config` replaces the synthetic configuration (e.g. a low
+    `fallback_error`, which drives the seed chain to the yaw rescue)."""
+    cfg = config or synthetic.config(subsample, pyramid_levels)
+    tracker = FrameToFrameOdometry(FrameBuilder(synthetic.calibration(cfg.rig), cfg))
+    seeds, pbs = [], []
+    align, register = tracker.aligner.align, tracker.plane_reg.register
+
+    def record_align(src, trg, init_pose=None, *args, **kw):
+        seeds[-1].append(np.asarray(init_pose, np.float32))
+        return align(src, trg, init_pose, *args, **kw)
+
+    def record_register(*args, **kw):
+        pbs.append(jax.device_get(register(*args, **kw)))
+        return pbs[-1]
+
+    tracker.aligner.align = record_align
+    tracker.plane_reg.register = record_register
+    planes = []
+    for rgb, d in synthetic.captures(n_frames, subsample):
+        seeds.append([])
+        tracker.process(RawRigFrame(rgb=rgb, depth_mm=d))
+        planes.append(jax.device_get(tracker.prev.planes))
+    stats = tracker.stats
+    out = {
+        "rel": np.stack([i["rel"] for i in stats]).astype(np.float32),
+        "tracked": np.array([i["tracked"] for i in stats]),
+        "pb_matches": np.array([i["pb_matches"] for i in stats]),
+        "av_depth_residual": np.array([i["av_depth_residual"] for i in stats]),
+        "sso": np.array([i["sso"] for i in stats]),
+        "pb_success": np.array([bool(p.success) for p in pbs]),
+        "pb_pose": np.stack([np.asarray(p.pose) for p in pbs]),
+        "pb_pairs": np.stack([np.asarray(p.pairs) for p in pbs]),
+        "seed_counts": np.array([len(s) for s in seeds[1:]]),
+        "seeds": np.stack([x for s in seeds[1:] for x in s]),
+    }
+    for f in ("normal", "center", "area", "valid"):
+        out[f"planes_{f}"] = np.stack([np.asarray(getattr(p, f)) for p in planes])
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=6, help="frames of the slice")
     p.add_argument("--out-dir", default=str(DATA))
-    p.add_argument("--batch-only", action="store_true",
-                   help="write only batch_golden.npz")
+    only = p.add_mutually_exclusive_group()
+    only.add_argument("--batch-only", action="store_true",
+                      help="write only batch_golden.npz and the stitch maps")
+    only.add_argument("--odometry-only", action="store_true",
+                      help="write only odometry_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if not args.batch_only:
+        res = odometry_jax(args.frames)
+        np.savez(out_dir / "odometry_golden.npz", **res)
+        print(f"wrote {out_dir / 'odometry_golden.npz'}")
+        print("odometry axial steps (m):", res["rel"][:, 0, 3].tolist())
+        print("PbMap matches:", res["pb_matches"].tolist(), "seeds tried:",
+              res["seed_counts"].tolist(), "valid planes:",
+              res["planes_valid"].sum(axis=1).tolist())
+    if args.odometry_only:
+        return
     if not args.batch_only:
         res = track_pairs_jax(args.frames)
         np.savez(out_dir / "smoke_golden.npz", **res)

@@ -11,10 +11,20 @@ a. the CUDA device check, and the card's name and power limit from
 b. K1 (`csrc/fused_gradients.cu`) is built from the checkout's sources and
    held bit for bit against its plain PyTorch version at every level shape
    of the 5-level pyramid, stacked as C=2 (gray + depth) and as a batch of
-   4 frames (C=8), on inputs with zeros, plateaus and equal neighbours;
-   both are timed with CUDA events;
+   4 frames (C=8), on inputs with zeros, plateaus and equal neighbours; at
+   awkward shapes (tiles' ragged edges, widths that are no multiple of 4, a
+   pointer that is not 16-byte aligned: the one-pixel-per-thread
+   instantiation); and as the grouped launch over a whole pyramid (10
+   stacks, B = 1 and 4) with and without seam masks.  Each is timed with
+   CUDA events and, in phase h, with `torch.profiler` (device time, the L2
+   flushed between launches, and back to back), and printed with the bytes
+   it must move, its bound at 3.35 TB/s and its share of that bound;
 c. K2 (`csrc/pyr_down.cu`) likewise at every level transition shape, for
-   C = 1 and 4, in both row modes (edge-clamped and circular);
+   C = 1 and 4, in both row modes (edge-clamped and circular), and
+   `fused_level_down` (the gray's pyrDown and the depth's 2x2 valid mean
+   in one launch) for B = 1 and 4 with depths below, inside and above the
+   valid range; beside them the time of the banded `A @ img @ B` sandwich
+   (a library call for the same function, timed only);
 d. the first slice at full size: 6 synthetic octagon-room captures
    (8x240x320 rig, `rgbd360_tpu_torch.synthetic`) go through
    `FrameBuilder.build_with_pyramid` (320x1920 sphere, 5 levels) and each
@@ -22,8 +32,10 @@ d. the first slice at full size: 6 synthetic octagon-room captures
    velocity seed).  Checked: finite, well-posed poses; 0.1 m +- 0.02 m
    axial steps; agreement with the JAX golden
    (`rgbd360_tpu_torch/data/smoke_golden.npz`, from
-   `tools/torch_port_golden.py`); K1 and K2 launched by the run.  The slice
-   then runs once with K1, and once with K2, swapped for its plain version;
+   `tools/torch_port_golden.py`); K1 and K2 launched by the run; one
+   pyramid is exactly 1 K1 launch and 4 K2 launches, and a profiled pyramid
+   (phase h) runs no other device op (no `bmm`, no seam multiply).  The slice then
+   runs once with K1, and once with K2, swapped for its plain version;
 e. the batched tracking path at full size (the reference's batch-4
    pipeline): keyframe 0 from `build_with_pyramid`, frames 1-4 through
    `build_gray_depth_batch` -> `build_frame_pyramid_batch` (B = 4) ->
@@ -51,12 +63,20 @@ g. frame-to-frame odometry at full size with the default config (bilateral
    lower bound), one profiled frame with its host waits and device-to-host
    copies as the profiler sees them, and one profile of each of its stages
    (the bilateral and the connected-component scans alone).
+h. the measurements that need `torch.profiler` (the kernels' device times
+   of phases b and c, the profiled pyramid of phase d), put off until every
+   host-clock timing is taken: once a process has profiled once
+   its kernel launches cost more host time (measured on an H100: `process`
+   100-119 ms per tracked frame in a fresh process, 129-192 ms after one
+   profile), which would be read as the port's.
 Phases e and f stitch with the reference builder's maps
 (`data/reference_stitch_maps.npz`, see `load_reference_maps`), and each
 pose must lie on one of the golden's branches (see `_gate_branches`).
 
 The last two lines are a JSON line of per-kernel results (launch counts
-summed over the gated runs of phases d-g) and the contract line
+summed over the gated runs of phases d-g, each counted from 0; times,
+bytes, bounds and the library call's time at the main path's level-0
+shapes, and per shape under `shapes`) and the contract line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -131,6 +151,11 @@ PLANE_TOL_RAD, PLANE_TOL_M, PLANE_TOL_AREA = 2e-3, 2e-3, 1e-3
 SEED_TOL_M, SEED_TOL_RAD = GOLDEN_TOL_M, GOLDEN_TOL_RAD
 
 K1, K2 = HK.fused_gradients, HK.fused_pyr_down  # the launch counters
+MIN_DEPTH, MAX_DEPTH = 0.3, 20.0  # DenseRegConfig's valid depth range
+# The card's peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s, and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 TOTAL_LAUNCHES: Counter = Counter()  # over the gated runs of every phase
@@ -192,53 +217,254 @@ def _plateau_inputs(c: int, h: int, w: int, rng) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
-def _check_bit_equal(name, kernel, plain, shapes_c, rng) -> dict:
-    """`kernel` against `plain` bit for bit on every (c, h, w), both timed
-    with CUDA events."""
-    worst = 0.0
-    rows = []
-    for c, h, w in shapes_c:
-        x = _plateau_inputs(c, h, w, rng)
-        got, ref = kernel(x), plain(x)
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-        worst = max(worst, err)
-        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            raise AssertionError(
-                f"{name} differs from its plain version at {(c, h, w)}: max |diff| {err}"
-            )
-        ms = _median_ms(lambda: kernel(x))
-        plain_ms = _median_ms(lambda: plain(x))
-        rows.append(dict(shape=(c, h, w), ms=ms, plain_ms=plain_ms))
-        print(f"{name} {c}x{h}x{w}: bit-equal; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (median of 30)")
-    return dict(max_abs_err=worst, rows=rows)
+def _depth_inputs(c: int, h: int, w: int, rng) -> torch.Tensor:
+    """Random f32 depths (c, h, w): ~20% zeros, the rest spread over 0-25 m,
+    so 2x2 blocks hold depths below, inside and above the valid range
+    (0.3-20 m) in every mix, blocks with no valid depth included."""
+    d = rng.uniform(0.0, 25.0, (c, h, w))
+    d = np.where(rng.uniform(size=(c, h, w)) < 0.2, 0.0, d)
+    d[:, : h // 4, : w // 4] = 0.1  # a region with no valid depth at all
+    return torch.from_numpy(d.astype(np.float32)).cuda()
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose pointer is 4-byte but not 16-byte
+    aligned (the kernels' one-pixel instantiation must take it)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def _seam_like_masks(shapes, rng) -> list:
+    """One random (H, W) bool mask (~5% zeros) per shape, on the card."""
+    return [torch.from_numpy(rng.uniform(size=hw) > 0.05).cuda() for hw in shapes]
+
+
+def _flat(out) -> list:
+    """The tensors of a kernel's result (a tensor, a tuple, a list of tuples)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for item in out for t in _flat(item)]
+
+
+def _device_events(prof) -> list:
+    """The device events of a profile, without the GPU ranges of
+    `record_function` regions (the tracker's StageTimer), which would count
+    a region's span as busy."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in REGIONS]
+
+
+_FLUSH: list = []  # one int32 buffer of 128 MB, larger than the 50 MB L2
+_DEFERRED: list = []  # phase h: the jobs that run the profiler
+
+
+def _device_time(fn, cold: bool, n: int = 20) -> tuple[float, float]:
+    """(device ms, device ops) of one call of fn: the sum of its device
+    events' durations (`torch.profiler`) and their count, means of n calls.
+    `cold`: a pass over a 128 MB buffer before every call empties the L2
+    (its kernel is left out of the sum).  Raises where five profiles in a
+    row come back short of device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(32 * 1024 * 1024, dtype=torch.int32, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a profile now and then comes back short of device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if cold:
+                    _FLUSH[0].bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in _device_events(prof) if "bitwise_not" not in e.name]
+        if ev and len(ev) % n == 0:  # every call's events are there
+            return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3, len(ev) / n
+    raise RuntimeError("the profiler lost device events in five profiles in a row")
+
+
+def _device_ms(fn, cold: bool, n: int = 20) -> float:
+    return _device_time(fn, cold, n)[0]
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_and_time(name, shape, kernel, plain, nbytes, flops, library=None,
+                    timed: bool = True) -> dict:
+    """`kernel()` against `plain()` bit for bit; with `timed`, both (and
+    `library()`, one PyTorch call for the same function) timed: per call by
+    CUDA events now, device time by the profiler with the L2 cold and warm
+    in phase h (the row is filled in then, so `kernel`, `plain` and
+    `library` must hold their inputs, not a loop's variables)."""
+    got, ref = _flat(kernel()), _flat(plain())
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() if a.numel() else 0.0 for a, b in zip(got, ref))
+    if len(got) != len(ref) or not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{name} differs from its plain version at {shape}: "
+                             f"max |diff| {err}")
+    row = dict(name=name, shape=shape, max_abs_err=err)
+    if not timed:
+        print(f"{name} {shape}: bit-equal")
+        return row
+    bound_ms, bound_by = _bound(nbytes, flops)
+    row.update(call_ms=_median_ms(kernel), plain_call_ms=_median_ms(plain, reps=10, warmup=2),
+               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{name} {shape}: bit-equal; per call {row['call_ms']:.4f} ms, plain "
+          f"{row['plain_call_ms']:.4f} ms (CUDA events, medians of 30 and 10)")
+
+    def profiled() -> None:
+        row.update(
+            ms=_device_ms(kernel, cold=True), warm_ms=_device_ms(kernel, cold=False),
+            plain_ms=_device_ms(plain, cold=True, n=5),
+            library_ms=None if library is None else _device_ms(library, cold=True, n=10),
+        )
+        lib = "" if library is None else f", library call {1e3 * row['library_ms']:.2f} us"
+        print(f"{name} {shape}: device {1e3 * row['ms']:.2f} us cold, "
+              f"{1e3 * row['warm_ms']:.2f} us warm (profiler, mean of 20); plain "
+              f"{1e3 * row['plain_ms']:.2f} us device{lib}; {nbytes / 1e6:.3f} MB, bound "
+              f"{1e3 * bound_ms:.2f} us by {bound_by}, share of bound "
+              f"{bound_ms / row['ms']:.2f} cold, {bound_ms / row['warm_ms']:.2f} warm")
+
+    _DEFERRED.append(profiled)
+    return row
+
+
+# Operations per pixel, for the bounds: K1 two harmonic means (2 differences,
+# 3 divisions, 1 sum each) and 2 mask products; K2's blur 7 per window column
+# (2 of them per output) and 7 per output; the valid mean 6 sums, a division.
+K1_FLOPS_PER_PIXEL = 14
+K2_FLOPS_PER_OUTPUT = 21
+DEPTH_FLOPS_PER_OUTPUT = 7
+# Shapes that cross tile edges and take the one-pixel instantiation
+AWKWARD_K1 = [(3, 22, 36), (1, 6, 6), (5, 38, 124), (2, 9, 131), (1, 3, 5), (2, 33, 130)]
+AWKWARD_K2 = [(3, 22, 36), (1, 6, 6), (5, 38, 124), (2, 10, 264), (2, 10, 134), (1, 2, 2)]
+
+
+def _k1_bytes(stacks, masks=None) -> int:
+    """Bytes a K1 launch must move: every pixel read once and written
+    twice, and every distinct mask (a level's gray and depth stacks share
+    one) read once."""
+    unique = {m.data_ptr(): m.numel() for m in masks or () if m is not None}
+    return sum(3 * 4 * x.numel() for x in stacks) + sum(unique.values())
 
 
 def check_k1(rng) -> dict:
-    """Phase b: K1 against its plain version at every level shape."""
-    shapes = [(c, h, w) for h, w in LEVEL_SHAPES for c in (2, 8)]
-    return _check_bit_equal(
-        "K1 fused_gradients", HK.fused_gradients, HK.fused_gradients_plain, shapes, rng
-    )
+    """Phase b: K1 against its plain version at every level shape, at the
+    awkward shapes, and as the grouped launch over a whole pyramid."""
+    rows = []
+    for h, w in LEVEL_SHAPES:
+        for c in (2, 8):
+            x = _plateau_inputs(c, h, w, rng)
+            rows.append(_check_and_time(
+                "K1 fused_gradients", (c, h, w), lambda x=x: HK.fused_gradients(x),
+                lambda x=x: HK.fused_gradients_plain(x), _k1_bytes([x]),
+                K1_FLOPS_PER_PIXEL * c * h * w,
+            ))
+    for c, h, w in AWKWARD_K1:
+        x = _plateau_inputs(c, h, w, rng)
+        m = _seam_like_masks([(h, w)], rng)[0]
+        for what, xi in (("", x), (" (misaligned)", _misaligned(x))):
+            for mask in (None, m):
+                rows.append(_check_and_time(
+                    f"K1 fused_gradients{what}{' masked' if mask is not None else ''}",
+                    (c, h, w), lambda: HK.fused_gradients(xi, mask),
+                    lambda: HK.fused_gradients_plain(xi, mask), 0, 0, timed=False,
+                ))
+    groups = {}
+    for b in (1, 4):
+        stacks = [f(b, h, w, rng) for h, w in LEVEL_SHAPES for f in (_plateau_inputs, _depth_inputs)]
+        masks = [m for m in _seam_like_masks(LEVEL_SHAPES, rng) for _ in range(2)]
+        for mk in (None, masks):
+            before = K1.launches
+            HK.fused_gradients_levels(stacks, mk)
+            if K1.launches != before + 1:
+                raise AssertionError("the grouped K1 call is not one launch")
+            n_px = sum(x.numel() for x in stacks)
+            row = _check_and_time(
+                f"K1 fused_gradients_levels{' masked' if mk else ''}",
+                (b, "5 levels", len(stacks)),
+                lambda s=stacks, m=mk: HK.fused_gradients_levels(s, m),
+                lambda s=stacks, m=mk: HK.fused_gradients_levels_plain(s, m),
+                _k1_bytes(stacks, mk),
+                K1_FLOPS_PER_PIXEL * n_px,
+            )
+            rows.append(row)
+            if mk:
+                groups[b] = row
+    count, bits = HK.check_fast_reciprocal()
+    if count:
+        raise AssertionError(f"K1's fast reciprocal differs from IEEE division at {count} "
+                             f"floats, e.g. bits {bits:#010x}")
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows, groups=groups,
+                rcp_mismatches=count)
+
+
+def _sandwich(x: torch.Tensor):
+    """The banded `A @ img @ B` pyrDown of the reference as one PyTorch
+    call chain: K2's library yardstick, used nowhere in the port."""
+    from rgbd360_tpu_torch.ops.pyramid import _blur_decim_mats
+
+    a, b = _blur_decim_mats(x.shape[-2], x.shape[-1], x.device)
+    return lambda: (a @ x) @ b
 
 
 def check_k2(rng) -> dict:
-    """Phase c: K2 against its plain version at every transition shape,
-    in both row modes."""
-    shapes = [(c, h, w) for h, w in TRANSITION_SHAPES for c in (1, 4)]
-    edge = _check_bit_equal(
-        "K2 fused_pyr_down (edge rows)", HK.fused_pyr_down,
-        lambda x: HK.fused_pyr_down_plain(x, circular=False), shapes, rng,
-    )
-    circ = _check_bit_equal(
-        "K2 fused_pyr_down_circular", HK.fused_pyr_down_circular,
-        lambda x: HK.fused_pyr_down_plain(x, circular=True), shapes, rng,
-    )
-    return dict(max_abs_err=max(edge["max_abs_err"], circ["max_abs_err"]),
-                rows=circ["rows"], edge_rows=edge["rows"])
+    """Phase c: K2 against its plain version at every transition shape in
+    both row modes, `fused_level_down` at every transition shape for B = 1
+    and 4, and all of them at the awkward shapes."""
+    rows, transitions = [], {}
+    for h, w in TRANSITION_SHAPES:
+        for c in (1, 4):
+            x = _plateau_inputs(c, h, w, rng)
+            d = _depth_inputs(c, h, w, rng)
+            nbytes = 5 * c * h * w  # 4 bytes in, a quarter of that out
+            flops = K2_FLOPS_PER_OUTPUT * c * h * w // 4
+            for circ, fn in ((False, HK.fused_pyr_down), (True, HK.fused_pyr_down_circular)):
+                rows.append(_check_and_time(
+                    f"K2 {fn.__name__}", (c, h, w), lambda fn=fn, x=x: fn(x),
+                    lambda x=x, circ=circ: HK.fused_pyr_down_plain(x, circular=circ),
+                    nbytes, flops,
+                    library=_sandwich(x) if circ else None, timed=circ or c == 4,
+                ))
+            before = K2.launches
+            HK.fused_level_down(x, d, MIN_DEPTH, MAX_DEPTH)
+            if K2.launches != before + 1:
+                raise AssertionError("fused_level_down is not one launch")
+            row = _check_and_time(
+                "K2 fused_level_down (gray + depth)", (c, h, w),
+                lambda x=x, d=d: HK.fused_level_down(x, d, MIN_DEPTH, MAX_DEPTH),
+                lambda x=x, d=d: HK.fused_level_down_plain(x, d, MIN_DEPTH, MAX_DEPTH),
+                2 * nbytes,
+                flops + DEPTH_FLOPS_PER_OUTPUT * c * h * w // 4, library=_sandwich(x),
+            )
+            rows.append(row)
+            transitions[(c, h, w)] = row
+    for c, h, w in AWKWARD_K2:
+        x = _plateau_inputs(c, h, w, rng)
+        d = _depth_inputs(c, h, w, rng)
+        for what, xi, di in (("", x, d), (" (misaligned)", _misaligned(x), _misaligned(d))):
+            for circ, fn in ((False, HK.fused_pyr_down), (True, HK.fused_pyr_down_circular)):
+                rows.append(_check_and_time(
+                    f"K2 {fn.__name__}{what}", (c, h, w), lambda: fn(xi),
+                    lambda: HK.fused_pyr_down_plain(xi, circular=circ), 0, 0, timed=False,
+                ))
+            rows.append(_check_and_time(
+                f"K2 fused_level_down{what}", (c, h, w),
+                lambda: HK.fused_level_down(xi, di, MIN_DEPTH, MAX_DEPTH),
+                lambda: HK.fused_level_down_plain(xi, di, MIN_DEPTH, MAX_DEPTH), 0, 0,
+                timed=False,
+            ))
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows,
+                transitions=transitions)
 
 
 class _Swapped:
@@ -259,9 +485,8 @@ class _Swapped:
 def _swaps():
     """(name, counter, swap) of each kernel the paths launch."""
     return (
-        ("K1", K1, _Swapped("fused_gradients", HK.fused_gradients_plain)),
-        ("K2", K2, _Swapped("fused_pyr_down_circular",
-                            lambda x: HK.fused_pyr_down_plain(x, circular=True))),
+        ("K1", K1, _Swapped("fused_gradients_levels", HK.fused_gradients_levels_plain)),
+        ("K2", K2, _Swapped("fused_level_down", HK.fused_level_down_plain)),
     )
 
 
@@ -370,14 +595,11 @@ def _synthetic_setup(n_frames: int, dense_cfg=None, reference_maps: bool = False
     """(builder, aligner, RigFrames) of the full-size synthetic sequence on
     the card."""
     cfg = synthetic.config()
-    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg).to("cuda")
+    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
     if reference_maps:
         load_reference_maps(builder)
     aligner = D.DenseAligner(dense_cfg or cfg.dense)
-    frames = [
-        RigFrame(torch.from_numpy(rgb).cuda(), torch.from_numpy(d).cuda())
-        for rgb, d in synthetic.captures(n_frames)
-    ]
+    frames = [RigFrame.from_raw(raw) for raw in synthetic_raws(n_frames)]
     return builder, aligner, frames
 
 
@@ -414,6 +636,7 @@ def check_slice() -> dict:
           f"{np.abs(run['errors'] - golden['errors']).max():.3e}; "
           f"{same_iters}/{len(poses)} pairs with identical iteration counts")
 
+    pyramid = check_pyramid_stage(builder, frames[0])
     build_ms = statistics.median(run["build_ms"])
     align_ms = statistics.median(run["align_ms"])
     print(f"build_with_pyramid: median {build_ms:.3f} ms/frame over {N_FRAMES} "
@@ -429,7 +652,45 @@ def check_slice() -> dict:
         print(f"slice with plain {name} vs {name}: pose gap {sdt:.3e} m, {sdr:.3e} rad")
         if sdt > SWAP_TOL or sdr > SWAP_TOL:
             raise AssertionError(f"{name} and its plain version give different poses")
-    return dict(launches=launches, build_ms=build_ms, align_ms=align_ms)
+    return dict(launches=launches, build_ms=build_ms, align_ms=align_ms, pyramid=pyramid)
+
+
+def check_pyramid_stage(builder, frame) -> dict:
+    """One frame's pyramid is 1 K1 launch and 4 K2 launches, and (in phase
+    h) a profiled pyramid runs nothing else on the device (no `bmm` pair, no
+    seam multiply, no stack copy).  Returns its wall ms; phase h adds its
+    device ops and busy ms."""
+    sphere = builder.build(frame)
+    builder.pyramid(sphere)
+    _reset_counts()
+    builder.pyramid(sphere)
+    counts = _counts()
+    levels = builder.config.dense.pyramid_levels
+    if counts != {"fused_gradients": 1, "fused_pyr_down": levels - 1}:
+        raise AssertionError(f"one pyramid launched {counts}, not 1 K1 and {levels - 1} K2")
+    pyr_ms = statistics.median(_host_ms(lambda: builder.pyramid(sphere), reps=30))
+    print(f"pyramid stage: launches {counts}; wall {pyr_ms:.3f} ms (median of 30)")
+    out = dict(wall_ms=pyr_ms)
+
+    def profiled() -> None:
+        # the profiler now and then drops device events: a profile that shows
+        # fewer ops than were launched is taken again, and none may show more
+        names: list = []
+        for _ in range(5):
+            wall, busy, ops, _, _ = _profile(lambda: builder.pyramid(sphere), names)
+            if ops >= levels:
+                break
+        foreign = [n for n in names
+                   if "fused_gradients_kernel" not in n and "level_down_kernel" not in n]
+        if ops != levels or foreign:
+            raise AssertionError(f"the pyramid stage launched {levels} kernels and its profile "
+                                 f"shows {ops} device ops, {foreign} not K1's or K2's")
+        print(f"pyramid stage, profiled: {ops} device ops (all K1's and K2's kernels), device "
+              f"busy {busy:.4f} ms, wall {wall:.3f} ms")
+        out.update(device_ops=ops, busy_ms=busy)
+
+    _DEFERRED.append(profiled)
+    return out
 
 
 def _result_np(res: D.AlignResult, prefix: str) -> dict:
@@ -553,7 +814,8 @@ def check_targets(builder, aligner, frames) -> dict:
     _gate_poses("batch_align_targets", got, "targets", offsets)
     m = _gate_branches("batch_align_targets vs JAX golden", got["targets_poses"],
                        golden["targets_branch_poses"])
-    seeds = torch.from_numpy(synthetic.walk_seeds(STEP_M * np.arange(n - 1, -1, -1))).cuda()
+    seeds = torch.from_numpy(synthetic.walk_seeds(STEP_M * np.arange(n - 1, -1, -1)))
+    seeds = seeds.to(builder.sensor.device)
     one = align_unbatched(aligner, [pyrs[n]] * n, pyrs[:n], seeds)
     _gate_gaps("batch_align_targets vs unbatched align", got["targets_poses"],
                one["poses"], UNBATCHED_TOL_M, UNBATCHED_TOL_RAD)
@@ -732,11 +994,11 @@ REGIONS = {"build", "stitch", "cloud", "pyramid", "segment", "register", "align"
 HOST_WAITS = {"cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy"}
 
 
-def _profile(fn) -> tuple[float, float, int, int, int]:
+def _profile(fn, names: list | None = None) -> tuple[float, float, int, int, int]:
     """(wall ms, device busy ms, device ops, host waits, device-to-host
     copies) of one profiled call; busy is the union of the device events'
-    intervals, host waits the count of `HOST_WAITS` calls."""
-    from torch.autograd import DeviceType
+    intervals, host waits the count of `HOST_WAITS` calls.  `names`, when
+    given, is filled with the device events' names."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -745,10 +1007,9 @@ def _profile(fn) -> tuple[float, float, int, int, int]:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    # device events, without the GPU ranges of `record_function` regions
-    # (the tracker's StageTimer), which would count a region's span as busy
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False) and e.name not in REGIONS]
+    events = _device_events(prof)
+    if names is not None:
+        names[:] = [e.name for e in events]
     busy, end = 0.0, -np.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
         busy += max(0.0, b - max(a, end))
@@ -763,7 +1024,7 @@ def check_odometry_phase(smi: str) -> None:
     golden = dict(np.load(ODOMETRY_GOLDEN))
     t0 = time.perf_counter()
     cfg = synthetic.config()
-    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg).to("cuda")
+    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
     raws = synthetic_raws(N_FRAMES)
     print(f"odometry set-up (calibration maps, synthetic captures): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -782,7 +1043,7 @@ def check_odometry_phase(smi: str) -> None:
             raise AssertionError(f"two odometry runs differ in {k}")
 
     process_ms = statistics.median(run["process_ms"][1:])
-    frame = RigFrame(torch.from_numpy(raws[1].rgb).cuda(), torch.from_numpy(raws[1].depth_mm).cuda())
+    frame = RigFrame.from_raw(raws[1])
     build_ms = statistics.median(_host_ms(lambda: builder.build_full(frame), reps=7))
     print(f"odometry: process median {process_ms:.3f} ms per tracked frame "
           f"(all {np.round(run['process_ms'], 3).tolist()}); build_full median "
@@ -877,31 +1138,34 @@ def main() -> int:
     t0 = time.perf_counter()
     check_odometry_phase(smi)
     print(f"phase g took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for job in _DEFERRED:
+        job()
+    print(f"phase h took {time.perf_counter() - t0:.1f} s")
 
-    # the batch path's level-0 launches: K1 on (8, 320, 1920), K2 on (4, 320, 1920)
-    k1_row = next(r for r in k1["rows"] if r["shape"] == (8, *LEVEL_SHAPES[0]))
-    k2_row = next(r for r in k2["rows"] if r["shape"] == (4, *LEVEL_SHAPES[0]))
+    print(f"fast reciprocal of K1 against IEEE division over its whole range: "
+          f"{k1['rcp_mismatches']} mismatches")
+    # each kernel at the main path's level-0 launch (one tracked odometry
+    # frame): K1 grouped over the frame's 10 stacks with the seam masks, K2
+    # over the first level transition (gray + depth); every shape under `shapes`
+    keys = ("ms", "warm_ms", "call_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by",
+            "library_ms", "bytes")
+
+    def entry(name, source, replaces, launches, res, main):
+        shapes = [dict(name=r["name"], shape=list(r["shape"]), **{k: r[k] for k in keys})
+                  for r in res["rows"] if "ms" in r]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=res["max_abs_err"],
+                    shape=list(main["shape"]), **{k: main[k] for k in keys}, shapes=shapes)
+
+    print(json.dumps({"card": smi, "pyramid": sl["pyramid"]}))
     print(json.dumps({"kernels": [
-        {
-            "name": "fused_gradients",
-            "route": "cuda",
-            "source": "rgbd360_tpu_torch/csrc/fused_gradients.cu",
-            "replaces": "rgbd360_tpu/ops/pallas_kernels.py:148",
-            "launches": TOTAL_LAUNCHES["fused_gradients"],
-            "max_abs_err": k1["max_abs_err"],
-            "ms": k1_row["ms"],
-            "plain_ms": k1_row["plain_ms"],
-        },
-        {
-            "name": "fused_pyr_down",
-            "route": "cuda",
-            "source": "rgbd360_tpu_torch/csrc/pyr_down.cu",
-            "replaces": "rgbd360_tpu/ops/pallas_kernels.py:90",
-            "launches": TOTAL_LAUNCHES["fused_pyr_down"],
-            "max_abs_err": k2["max_abs_err"],
-            "ms": k2_row["ms"],
-            "plain_ms": k2_row["plain_ms"],
-        },
+        entry("fused_gradients", "rgbd360_tpu_torch/csrc/fused_gradients.cu",
+              "rgbd360_tpu/ops/pallas_kernels.py:148", TOTAL_LAUNCHES["fused_gradients"],
+              k1, k1["groups"][1]),
+        entry("fused_pyr_down", "rgbd360_tpu_torch/csrc/pyr_down.cu",
+              "rgbd360_tpu/ops/pallas_kernels.py:90", TOTAL_LAUNCHES["fused_pyr_down"],
+              k2, k2["transitions"][(1, *LEVEL_SHAPES[0])]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,18 +10,73 @@ its per-level seam masks into a state dict for the port's
 
 Both packages then stitch with the very same gather maps.
 `stitch_maps_state_dict` carries only the stitch maps (and the seam masks
-they give), for `load_state_dict(..., strict=False)`.  The config
-dataclasses are shared as they are and need no conversion.
+they give), for `load_state_dict(..., strict=False)`.
+`config_from_reference` and `calibration_from_reference` rebuild the port's
+own `config` dataclasses and `io.calib.Calibration` from the reference's,
+field by field; `config_to_reference` and `calibration_to_reference` go the
+other way, given the reference's module or class (this module imports
+nothing of the reference package).
 `plane_set_from_numpy` and `plane_set_to_numpy` carry a plane set (the
 reference's `PlaneSet` with numpy fields) across, both ways.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping, Sequence
 
 import numpy as np
 import torch
+
+from rgbd360_tpu_torch import config as _config
+from rgbd360_tpu_torch.io.calib import Calibration
+
+
+def _rebuild(obj, module):
+    """The dataclass of `obj`'s class name in `module`, rebuilt from `obj`
+    field by field (nested dataclasses too); a missing or extra field
+    raises."""
+    cls = getattr(module, type(obj).__name__)
+    names = {f.name for f in dataclasses.fields(cls)}
+    have = {f.name for f in dataclasses.fields(obj)}
+    if names != have:
+        raise TypeError(
+            f"{cls.__module__}.{cls.__name__} and {type(obj).__module__}."
+            f"{type(obj).__name__} differ in fields {sorted(names ^ have)}"
+        )
+    values = {}
+    for name in names:
+        v = getattr(obj, name)
+        values[name] = _rebuild(v, module) if dataclasses.is_dataclass(v) else v
+    return cls(**values)
+
+
+def config_from_reference(cfg):
+    """The port's twin of a reference config dataclass (a `FrameworkConfig`
+    or any of its parts), rebuilt field by field."""
+    return _rebuild(cfg, _config)
+
+
+def config_to_reference(cfg, reference_config):
+    """A port config dataclass as the class of the same name in
+    `reference_config` (the reference's `config` module)."""
+    return _rebuild(cfg, reference_config)
+
+
+def _calibration_as(calib, cls):
+    return cls(**{f.name: getattr(calib, f.name) for f in dataclasses.fields(cls)})
+
+
+def calibration_from_reference(calib) -> Calibration:
+    """The port's `io.calib.Calibration` from the reference's (the same
+    arrays, not copies)."""
+    return _calibration_as(calib, Calibration)
+
+
+def calibration_to_reference(calib: Calibration, reference_calibration):
+    """A port calibration as `reference_calibration` (the reference's
+    `io.calib.Calibration` class)."""
+    return _calibration_as(calib, reference_calibration)
 
 _DTYPES = {
     "sensor": torch.int32,
@@ -77,8 +132,6 @@ def plane_set_from_numpy(planes, device=None):
     """The port's `ops.segmentation.PlaneSet` from a plane set whose fields
     (attributes, or keys of a mapping) are numpy arrays: e.g. the
     reference's `PlaneSet` after `jax.device_get`."""
-    import dataclasses
-
     from rgbd360_tpu_torch.ops.segmentation import PlaneSet
 
     get = planes.__getitem__ if isinstance(planes, Mapping) else planes.__getattribute__
@@ -91,7 +144,5 @@ def plane_set_from_numpy(planes, device=None):
 def plane_set_to_numpy(planes) -> dict[str, np.ndarray]:
     """{field: numpy array} of the port's PlaneSet, on the host (the
     reference's `PlaneSet(**{k: jnp.asarray(v) ...})` takes it back)."""
-    import dataclasses
-
     return {f.name: getattr(planes, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(planes)}

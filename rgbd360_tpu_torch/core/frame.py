@@ -22,8 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from rgbd360_tpu.config import FrameworkConfig, default_config
-from rgbd360_tpu.io.calib import Calibration
+from rgbd360_tpu_torch import resolve_device
+from rgbd360_tpu_torch.config import FrameworkConfig, default_config
+from rgbd360_tpu_torch.io.calib import Calibration
 from rgbd360_tpu_torch.ops import camera, pyramid as pyr_ops, segmentation as seg_ops
 from rgbd360_tpu_torch.ops import stitch as stitch_ops, undistort as undistort_ops
 from rgbd360_tpu_torch.ops.bilateral import bilateral_depth
@@ -61,7 +62,8 @@ class RigFrame:
     @staticmethod
     def from_raw(raw, device=None) -> "RigFrame":
         """From a `RawRigFrame` (any object with `rgb` and `depth_mm`),
-        onto `device`."""
+        onto `device`: the card when None (`default_device()`)."""
+        device = resolve_device(device)
         return RigFrame(
             rgb=torch.from_numpy(raw.rgb).to(device),
             depth=torch.from_numpy(raw.depth_mm).to(device),
@@ -129,8 +131,11 @@ class FrameBuilder(nn.Module):
     """Builds SphereFrames from raw rig captures for a fixed calibration.
 
     The calibration tensors (stitch maps, extrinsics, intrinsics, CLAMS
-    per-pixel tables, per-level seam masks) are registered buffers, so
-    `.to(device)` moves them; a frame is built on the buffers' device.
+    per-pixel tables, per-level seam masks) are registered buffers on
+    `device`: the card when None (`default_device()`, which raises where
+    there is none), the CPU only when asked for.  They are computed once on
+    the host, so their values do not depend on the device, then moved; a
+    frame is built on the buffers' device.
     `convert.frame_builder_state_dict` turns the reference builder's
     parameters into these buffers.  The cloud stage and the segmentation
     have no state of their own.
@@ -141,8 +146,10 @@ class FrameBuilder(nn.Module):
         calib: Calibration,
         config: FrameworkConfig | None = None,
         downsample_cloud: bool = True,
+        device=None,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.config = config or default_config()
         self.downsample_cloud = downsample_cloud
         if self.config.sphere.parallax_refine:
@@ -174,6 +181,7 @@ class FrameBuilder(nn.Module):
         levels = dense_ops.seam_masks_per_level(seam, self.config.dense.pyramid_levels)
         for lvl, m in enumerate(levels):
             self.register_buffer(f"seam_{lvl}", m)
+        self.to(device)
 
     @property
     def maps(self) -> stitch_ops.StitchMaps:

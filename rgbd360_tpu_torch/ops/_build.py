@@ -95,11 +95,17 @@ def _compile(out: Path) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rgbd360_fused_gradients.argtypes = [p, p, p, i, i, i, p]
-    lib.rgbd360_fused_gradients.restype = i
-    lib.rgbd360_pyr_down.argtypes = [p, p, i, i, i, i, p]
-    lib.rgbd360_pyr_down.restype = i
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (group, blocks, stream)
+    lib.rgbd360_fused_gradients_levels.argtypes = [p, i, p]
+    lib.rgbd360_fused_gradients_levels.restype = i
+    # (gray, gray_out, c_gray, depth, depth_out, c_depth, h, w, circular_rows,
+    #  lo, hi, vec_gray, vec_depth, stream)
+    lib.rgbd360_level_down.argtypes = [p, p, i, p, p, i, i, i, i, f, f, i, i, p]
+    lib.rgbd360_level_down.restype = i
+    # (result, stream)
+    lib.rgbd360_check_fast_reciprocal.argtypes = [p, p]
+    lib.rgbd360_check_fast_reciprocal.restype = i
     lib.rgbd360_cuda_error_string.argtypes = [i]
     lib.rgbd360_cuda_error_string.restype = ctypes.c_char_p
 

@@ -7,12 +7,16 @@ Every function takes one image (H, W) or a stack (B, H, W) of them.
   azimuth; the wrapped border rows are harmless because row-border
   gradients are zeroed downstream): kernel K2,
   `ops/hopper_kernels.fused_pyr_down_circular`, for even shapes.
-* Depth pyramid: 2x2 block mean over valid depths only, as a banded matmul
+* Depth pyramid: 2x2 block mean over valid depths only.  Inside a frame
+  pyramid it rides in K2's launch (`fused_level_down`, one launch per level
+  transition for gray and depth); `pyr_down_depth` alone is a 0/1 matmul
   sandwich over the depth sum and the valid count.
 * Gradients: the harmonic mean of forward and backward differences where
   the pixel lies strictly between its neighbours (kernel K1,
-  `ops/hopper_kernels.fused_gradients`).  Border columns/rows are zeroed
-  even though the sphere wraps, as in the reference.
+  `ops/hopper_kernels.fused_gradients`; `gradient_xy_levels` takes every
+  level of a pyramid, and the seam masks, in one launch).  Border
+  columns/rows are zeroed even though the sphere wraps, as in the
+  reference.
 """
 
 from __future__ import annotations
@@ -55,13 +59,6 @@ def _box_sum_mats(h: int, w: int, device: torch.device):
     b[2 * np.arange(w // 2), np.arange(w // 2)] = 1.0
     b[2 * np.arange(w // 2) + 1, np.arange(w // 2)] = 1.0
     return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
-
-
-@functools.lru_cache(maxsize=64)
-def _box_sum_stacks(h: int, w: int, n: int, device: torch.device):
-    """`_box_sum_mats` stacked n times, (n, h/2, h) and (n, w, w/2), for
-    one plain `bmm` pair over n channels."""
-    return tuple(m.expand(n, *m.shape).contiguous() for m in _box_sum_mats(h, w, device))
 
 
 def _sep_filter5(img: torch.Tensor) -> torch.Tensor:
@@ -111,24 +108,23 @@ def pyr_down_depth(
 def fused_level_down(
     gray: torch.Tensor, depth: torch.Tensor, min_depth: float, max_depth: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One pyramid level for gray AND depth: one K2 launch for the gray
-    stack, and one matmul sandwich over the depth sum and valid count
-    channels.  Each block-sum dot product has 2 nonzero addends per pass,
-    so the depth is bit-equal to the reference in any summation order.
-    Odd shapes (which no pyramid of the port reaches) keep the reference's
-    banded-matmul gray, whose output is (H//2, W//2)."""
+    """One pyramid level for gray AND depth.  Even shapes take ONE K2
+    launch (`hopper_kernels.fused_level_down`): the gray's pyrDown and the
+    depth's 2x2 valid mean, whose block sums have 2 addends per pass, so
+    the depth is bit-equal to the reference's matmul sandwich.  Odd shapes
+    (which no pyramid of the port reaches) keep the reference's
+    banded-matmul gray, whose output is (H//2, W//2), and
+    `pyr_down_depth`."""
     h, w = gray.shape[-2:]
-    valid = (depth > min_depth) & (depth < max_depth)
-    # (2B, H, W): the B depth sums, then the B valid counts
-    x = torch.cat([torch.where(valid, depth, 0.0), valid.to(depth.dtype)]).reshape(-1, h, w)
-    a, b = _box_sum_stacks(h, w, x.shape[0], depth.device)
-    out = torch.bmm(torch.bmm(a, x), b).reshape(2, *depth.shape[:-2], h // 2, w // 2)
     if h % 2 == 0 and w % 2 == 0:
-        g2 = pyr_down(gray)
-    else:
-        a_g, b_g = _blur_decim_mats(h, w, gray.device)
-        g2 = (a_g @ gray) @ b_g
-    return g2, _valid_mean(out[0], out[1])
+        g2, d2 = hopper_kernels.fused_level_down(
+            gray.reshape(-1, h, w).contiguous(), depth.reshape(-1, h, w).contiguous(),
+            min_depth, max_depth,
+        )
+        return (g2.reshape(*gray.shape[:-2], h // 2, w // 2),
+                d2.reshape(*depth.shape[:-2], h // 2, w // 2))
+    a_g, b_g = _blur_decim_mats(h, w, gray.device)
+    return (a_g @ gray) @ b_g, pyr_down_depth(depth, min_depth, max_depth)
 
 
 def build_depth_pyramid(
@@ -143,6 +139,12 @@ def build_depth_pyramid(
 def gradient_xy_multi(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(gx, gy) of a stacked (C, H, W) tensor in one K1 launch."""
     return hopper_kernels.fused_gradients(imgs.contiguous())
+
+
+def gradient_xy_levels(stacks, masks=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(gx, gy)] of every (C, H, W) stack of a pyramid in ONE K1 launch,
+    each multiplied by its (H, W) bool seam mask when `masks` is given."""
+    return hopper_kernels.fused_gradients_levels([x.contiguous() for x in stacks], masks)
 
 
 def gradient_xy(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

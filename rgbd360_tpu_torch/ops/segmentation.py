@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rgbd360_tpu.config import SegmentationConfig
+from rgbd360_tpu_torch.config import SegmentationConfig
 
 
 @dataclass

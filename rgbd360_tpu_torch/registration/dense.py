@@ -38,7 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
-from rgbd360_tpu.config import DenseRegConfig
+from rgbd360_tpu_torch.config import DenseRegConfig
 from rgbd360_tpu_torch.ops import camera, pyramid as pyr_ops, se3
 
 PHOTO_CONSISTENCY = 0
@@ -113,10 +113,10 @@ def unstack_pyramid(pyr: FramePyramid) -> list:
 
 
 def _build_pyramid(gray, depth, cfg, seam_valid, num_sensors, spherical):
-    """The pyramid of one frame (H, W) or of a batch (B, H, W).  Each level
-    transition is one K2 launch for the gray (plus the depth sandwich), and
-    the gradients of gray and depth at each level are ONE K1 launch on the
-    (2B, H, W) stack."""
+    """The pyramid of one frame (H, W) or of a batch (B, H, W): one K2
+    launch per level transition (gray and depth together), then ONE K1
+    launch for the gradients of gray and depth at every level, with the
+    seam masks applied in its store."""
     if seam_valid is not None and not isinstance(seam_valid, (tuple, list)):
         seam_valid = seam_masks_per_level(seam_valid, cfg.pyramid_levels)
     levels = [(gray, depth)]
@@ -129,25 +129,30 @@ def _build_pyramid(gray, depth, cfg, seam_valid, num_sensors, spherical):
             levels.append(
                 (pyr_ops.pyr_down(g_c), pyr_ops.pyr_down_depth(d_c, cfg.min_depth, cfg.max_depth))
             )
-    grads = []  # per level: (gx, gy), each (2, ..., H, W) = (gray, depth)
-    half = max(1, cfg.seam_mask_px // 2)
+    stacks, masks = [], None if seam_valid is None else []
     for lvl, (g_l, d_l) in enumerate(levels):
         h, w = g_l.shape[-2:]
-        sx, sy = pyr_ops.gradient_xy_multi(torch.stack([g_l, d_l]).reshape(-1, h, w))
+        stacks += [g_l.reshape(-1, h, w), d_l.reshape(-1, h, w)]
         if seam_valid is not None:
-            m = seam_valid[lvl].to(sx.dtype)[:h, :w]
-            sx, sy = sx * m, sy * m
-        elif spherical:
-            sx = pyr_ops.mask_seams(sx, num_sensors, half)
-            sy = pyr_ops.mask_seams(sy, num_sensors, half)
-        grads.append((sx.reshape(2, *g_l.shape), sy.reshape(2, *g_l.shape)))
+            m = seam_valid[lvl][:h, :w]  # a 0/1 mask
+            masks += [(m if m.dtype == torch.bool else m != 0).contiguous()] * 2
+    grads = pyr_ops.gradient_xy_levels(stacks, masks)
+    if seam_valid is None and spherical:
+        half = max(1, cfg.seam_mask_px // 2)
+        grads = [
+            tuple(pyr_ops.mask_seams(g, num_sensors, half) for g in pair) for pair in grads
+        ]
+    shaped = [
+        tuple(g.reshape(x.shape) for g in pair)
+        for pair, x in zip(grads, (x for level in levels for x in level))
+    ]
     return FramePyramid(
         gray=tuple(g for g, _ in levels),
         depth=tuple(d for _, d in levels),
-        gray_gx=tuple(gx[0] for gx, _ in grads),
-        gray_gy=tuple(gy[0] for _, gy in grads),
-        depth_gx=tuple(gx[1] for gx, _ in grads),
-        depth_gy=tuple(gy[1] for _, gy in grads),
+        gray_gx=tuple(gx for gx, _ in shaped[0::2]),
+        gray_gy=tuple(gy for _, gy in shaped[0::2]),
+        depth_gx=tuple(gx for gx, _ in shaped[1::2]),
+        depth_gy=tuple(gy for _, gy in shaped[1::2]),
     )
 
 

@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from rgbd360_tpu.config import MatcherConfig
+from rgbd360_tpu_torch.config import MatcherConfig
 from rgbd360_tpu_torch.ops.segmentation import PlaneSet
 
 # Registration modes (reference `RegisterRGBD360.h:264-269`)

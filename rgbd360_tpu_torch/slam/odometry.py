@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rgbd360_tpu.config import FrameworkConfig
+from rgbd360_tpu_torch.config import FrameworkConfig
 from rgbd360_tpu_torch.core.frame import FrameBuilder, RigFrame, SphereFrame
 from rgbd360_tpu_torch.ops import se3, stitch as stitch_ops
 from rgbd360_tpu_torch.registration import dense as D

@@ -16,9 +16,9 @@ import dataclasses
 
 import numpy as np
 
-from rgbd360_tpu.apps.grabber import synth_capture, synth_trajectory_poses
-from rgbd360_tpu.config import FrameworkConfig, RigConfig, default_config
-from rgbd360_tpu.io.calib import Calibration, pinhole_k
+from rgbd360_tpu_torch.apps.grabber import synth_capture, synth_trajectory_poses
+from rgbd360_tpu_torch.config import FrameworkConfig, RigConfig, default_config
+from rgbd360_tpu_torch.io.calib import Calibration, pinhole_k
 from rgbd360_tpu_torch.calibration.spec import construction_spec_rt
 
 # synth_capture renders 240x320 QVGA sensors with these intrinsics

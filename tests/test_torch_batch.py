@@ -16,7 +16,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rgbd360_tpu.core.frame import FrameBuilder as JaxBuilder
 from rgbd360_tpu.ops import se3 as jse3
 from rgbd360_tpu.ops import stitch as jst
 from rgbd360_tpu.registration import dense as JD
@@ -24,6 +23,8 @@ from rgbd360_tpu_torch import convert, synthetic
 from rgbd360_tpu_torch.core.frame import FrameBuilder
 from rgbd360_tpu_torch.ops import stitch as tst
 from rgbd360_tpu_torch.registration import dense as TD
+
+from _reference import reference_builder
 
 SUB, LEVELS = 4, 3
 FIELDS = ("gray", "depth", "gray_gx", "gray_gy", "depth_gx", "depth_gy")
@@ -53,11 +54,12 @@ def setup():
     captures, and the reference's keyframe and batch pyramids."""
     cfg = synthetic.config(SUB, LEVELS)
     cal = synthetic.calibration(cfg.rig)
-    jb = JaxBuilder(cal, cfg)
-    tb = FrameBuilder(cal, cfg)
+    jb = reference_builder(cfg)
+    tb = FrameBuilder(cal, cfg, device="cpu")
     maps = {k: np.asarray(jb._params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
     tb.load_state_dict(convert.stitch_maps_state_dict(maps, LEVELS), strict=False)
     dcfg = dataclasses.replace(cfg.dense, salient_pixels=synthetic.BATCH_SALIENT_PIXELS)
+    jdcfg = dataclasses.replace(jb.config.dense, salient_pixels=synthetic.BATCH_SALIENT_PIXELS)
     caps = synthetic.captures(5, SUB)
     rgbs = np.stack([c[0] for c in caps[1:]])
     depths = np.stack([c[1] for c in caps[1:]])
@@ -68,8 +70,8 @@ def setup():
     ]
     seam = JD.seam_masks_per_level(jst.seam_mask_from_maps(jb.maps, 1), LEVELS)
     sg, sd = jb.build_gray_depth_batch(jnp.asarray(rgbs), jnp.asarray(depths))
-    pyr_b = jax.jit(lambda g, d: JD.build_frame_pyramid_batch(g, d, cfg.dense, seam))(sg, sd)
-    return dict(cfg=cfg, jb=jb, tb=tb, dcfg=dcfg, caps=caps, rgbs=rgbs, depths=depths,
+    pyr_b = jax.jit(lambda g, d: JD.build_frame_pyramid_batch(g, d, jb.config.dense, seam))(sg, sd)
+    return dict(cfg=cfg, jb=jb, tb=tb, dcfg=dcfg, jdcfg=jdcfg, caps=caps, rgbs=rgbs, depths=depths,
                 pyrs=pyrs, seam=seam, sg=sg, sd=sd, pyr_b=pyr_b)
 
 
@@ -123,7 +125,7 @@ def test_build_gray_depth_batch_on_own_maps(setup):
     everywhere else the batch build is bit-equal to the reference's
     un-jitted one."""
     jb = setup["jb"]
-    own = FrameBuilder(synthetic.calibration(setup["cfg"].rig), setup["cfg"])
+    own = FrameBuilder(synthetic.calibration(setup["cfg"].rig), setup["cfg"], device="cpu")
     g, d = own.build_gray_depth_batch(_t(setup["rgbs"]), _t(setup["depths"]))
     g_ref, d_ref = jb._build_gray_depth_batch_impl(
         jb._params, jnp.asarray(setup["rgbs"]), jnp.asarray(setup["depths"])
@@ -165,7 +167,7 @@ def batch_solve(setup):
     """The reference's `jax.vmap(aligner._align_impl)` of the batch against
     keyframe 0 (the batch bench's step), and the port's batched solve on the
     same pyramids, seeded one step short of each offset."""
-    aligner = JD.DenseAligner(setup["dcfg"])
+    aligner = JD.DenseAligner(setup["jdcfg"])
     seeds = synthetic.walk_seeds(0.1 * np.arange(4))
     ref = jax.device_get(jax.jit(jax.vmap(
         lambda p, s: aligner._align_impl(p, setup["pyrs"][0], s, JD.PHOTO_DEPTH)
@@ -209,7 +211,7 @@ def test_batch_align_targets_matches_reference(setup, n):
     each seeded one step short of its offset."""
     pyrs = setup["pyrs"]
     seeds = list(synthetic.walk_seeds(0.1 * np.arange(3, 3 - n, -1)))
-    ref = JD.batch_align_targets(JD.DenseAligner(setup["dcfg"]), pyrs[4], pyrs[:n], seeds)
+    ref = JD.batch_align_targets(JD.DenseAligner(setup["jdcfg"]), pyrs[4], pyrs[:n], seeds)
     aligner = TD.DenseAligner(setup["dcfg"])
     tp = [_to_torch(p) for p in pyrs]
     got = TD.batch_align_targets(aligner, tp[4], tp[:n], seeds)
@@ -238,7 +240,7 @@ def test_coarse_errors_and_coarse_align_match_reference(setup):
     (the tracker rescue): the static errors, and the refined poses and
     errors after 10 unguarded GN steps."""
     pyrs = setup["pyrs"]
-    ja = JD.DenseAligner(setup["dcfg"])
+    ja = JD.DenseAligner(setup["jdcfg"])
     ta = TD.DenseAligner(setup["dcfg"])
     src, trg = _to_torch(pyrs[1]), _to_torch(pyrs[0])
     cands = jse3.yaw_grid(8).astype(np.float32)

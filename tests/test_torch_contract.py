@@ -1,6 +1,8 @@
 """The port's contract with the card machine, which has no jax: the port and
-`chip_smoke.py` import with every jax import blocked, and `chip_smoke.py`
-refuses to run (non-zero exit, no result line) without a CUDA device."""
+`chip_smoke.py` import with every import of jax and of the JAX package
+(`rgbd360_tpu` and all its submodules, the jax-free ones included) blocked,
+no source file of theirs names such an import, and `chip_smoke.py` refuses
+to run (non-zero exit, no result line) without a CUDA device."""
 
 import ast
 import os
@@ -16,9 +18,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SLICE_MODULES = [
     "rgbd360_tpu_torch",
+    "rgbd360_tpu_torch.apps.grabber",
     "rgbd360_tpu_torch.calibration.spec",
+    "rgbd360_tpu_torch.config",
     "rgbd360_tpu_torch.convert",
     "rgbd360_tpu_torch.core.frame",
+    "rgbd360_tpu_torch.io.calib",
+    "rgbd360_tpu_torch.io.clams",
     "rgbd360_tpu_torch.ops._build",
     "rgbd360_tpu_torch.ops.bilateral",
     "rgbd360_tpu_torch.ops.camera",
@@ -40,16 +46,18 @@ _BLOCKER = textwrap.dedent(
     """
     import importlib, sys
 
+    BLOCKED = ("jax", "jaxlib", "rgbd360_tpu")
+
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked: " + name)
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
             return None
 
     sys.meta_path.insert(0, BlockJax())
     for m in sys.argv[1:]:
         importlib.import_module(m)
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(sys.argv) - 1, "modules without jax")
     """
@@ -72,16 +80,48 @@ def test_port_imports_without_jax():
     assert f"imported {len(SLICE_MODULES)} modules" in proc.stdout
 
 
-def test_chip_smoke_imports_only_the_port():
-    """`chip_smoke.py` names no module of the JAX package (`rgbd360_tpu.*`)
-    nor jax itself: it reaches the reference's JAX-free helpers, if at all,
-    only through the port."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported_names(path: Path) -> list[str]:
+    """Every module a source file imports, anywhere in it."""
+    tree = ast.parse(path.read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    return names
+
+
+def test_chip_smoke_imports_only_the_port():
+    """`chip_smoke.py` names no module of the JAX package (`rgbd360_tpu.*`)
+    nor jax itself."""
+    names = _imported_names(ROOT / "chip_smoke.py")
     tops = {name.split(".")[0] for name in names}
     assert "rgbd360_tpu_torch" in tops
     assert not tops & {"rgbd360_tpu", "jax", "jaxlib"}, sorted(names)
+
+
+def test_slice_modules_cover_the_package():
+    """Every module of the port is in SLICE_MODULES (so the blocked import
+    above reaches it)."""
+    pkg = ROOT / "rgbd360_tpu_torch"
+    found = set()
+    for path in pkg.rglob("*.py"):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        found.add(".".join(parts))
+    packages = {m for m in found if (ROOT / m.replace(".", "/")).is_dir()}
+    missing = found - packages - set(SLICE_MODULES)
+    assert not missing, sorted(missing)
+
+
+def _port_sources() -> list[Path]:
+    return sorted((ROOT / "rgbd360_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    """No `.py` of the port, nor `chip_smoke.py`, imports `jax`, `jaxlib` or
+    anything of `rgbd360_tpu` (at top level or inside a function)."""
+    bad = [n for n in _imported_names(path)
+           if n.split(".")[0] in ("rgbd360_tpu", "jax", "jaxlib")]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

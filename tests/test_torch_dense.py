@@ -13,11 +13,13 @@ import jax.numpy as jnp
 from rgbd360_tpu.config import DenseRegConfig
 from rgbd360_tpu.ops import se3 as jse3
 from rgbd360_tpu.registration import dense as JD
+from rgbd360_tpu_torch import convert
 from rgbd360_tpu_torch.registration import dense as TD
 
 from __graft_entry__ import _synthetic_pair
 
 CFG = DenseRegConfig(pyramid_levels=3)
+TCFG = convert.config_from_reference(CFG)  # the port's own dataclass
 FIELDS = ("gray", "depth", "gray_gx", "gray_gy", "depth_gx", "depth_gy")
 
 
@@ -55,9 +57,9 @@ def test_hess_grad_packed_parity(pair, method, lvl):
     )
     tl = {f: getattr(tsrc, f)[lvl] for f in FIELDS}
     tt = {f: getattr(ttrg, f)[lvl] for f in FIELDS}
-    pts_t, valid_t = TD._src_points(tl["depth"], CFG)
+    pts_t, valid_t = TD._src_points(tl["depth"], TCFG)
     ht, gt, st = TD._hess_grad_packed(
-        tl["gray"], pts_t, valid_t, TD._pack_target(tt), torch.tensor(pose), CFG, method
+        tl["gray"], pts_t, valid_t, TD._pack_target(tt), torch.tensor(pose), TCFG, method
     )
     hj, gj = np.asarray(hj), np.asarray(gj)
     assert np.abs(ht.numpy() - hj).max() <= 1e-3 * np.abs(hj).max()
@@ -82,11 +84,11 @@ def test_gn_level_parity(pair):
             JD.PHOTO_DEPTH, 0, None, CFG.max_iters_per_level,
         )
     )(jnp.asarray(pose))
-    pts_t, valid_t = TD._src_points(tsrc.depth[lvl], CFG)
+    pts_t, valid_t = TD._src_points(tsrc.depth[lvl], TCFG)
     pack_t = TD._pack_target({f: getattr(ttrg, f)[lvl] for f in FIELDS})
     pt, et, itt, illt, ht, _ = TD._gn_level(
         tsrc.gray[lvl], pts_t, valid_t, pack_t, torch.tensor(pose),
-        torch.tensor(False), CFG, TD.PHOTO_DEPTH, 0, None, CFG.max_iters_per_level,
+        torch.tensor(False), TCFG, TD.PHOTO_DEPTH, 0, None, TCFG.max_iters_per_level,
     )
     assert int(itt) == int(itj) and int(itj) > 0
     assert bool(illt) == bool(illj)
@@ -112,7 +114,7 @@ def _reference_salient_indices(pyr, lvl, k, cfg):
 
 def test_salient_selection_same_indices(pair):
     src, _, tsrc, _, _ = pair
-    aligner = TD.DenseAligner(CFG)
+    aligner = TD.DenseAligner(TCFG)
     for lvl, k in ((0, 2000), (1, 500), (2, 384)):
         np.testing.assert_array_equal(
             aligner._salient_indices(tsrc, lvl, k).numpy(),
@@ -126,7 +128,7 @@ def test_salient_align_with_polish(pair):
     src, trg, tsrc, ttrg, _ = pair
     cfg = DenseRegConfig(pyramid_levels=3, salient_pixels=2000, polish_iters=2)
     rj = JD.DenseAligner(cfg).align(src, trg)
-    rt = TD.DenseAligner(cfg).align(tsrc, ttrg)
+    rt = TD.DenseAligner(convert.config_from_reference(cfg)).align(tsrc, ttrg)
     np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
     np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-4)
     np.testing.assert_allclose(float(rt.error), float(rj.error), rtol=1e-3)
@@ -137,10 +139,10 @@ def test_salient_align_with_polish(pair):
 def test_unported_options_raise(pair):
     _, _, tsrc, ttrg, _ = pair
     with pytest.raises(NotImplementedError):
-        TD.DenseAligner(DenseRegConfig(bilinear=True))
+        TD.DenseAligner(convert.config_from_reference(DenseRegConfig(bilinear=True)))
     with pytest.raises(NotImplementedError):
-        TD.DenseAligner(CFG, intrinsics=np.eye(3))
-    aligner = TD.DenseAligner(CFG)
+        TD.DenseAligner(TCFG, intrinsics=np.eye(3))
+    aligner = TD.DenseAligner(TCFG)
     with pytest.raises(NotImplementedError):
         aligner.align(tsrc, ttrg, occlusion=1)
     with pytest.raises(NotImplementedError):

@@ -14,7 +14,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rgbd360_tpu.core.frame import FrameBuilder as JaxBuilder
 from rgbd360_tpu.registration import dense as JD
 from rgbd360_tpu.slam.odometry import FrameToFrameOdometry as JaxOdometry
 from rgbd360_tpu_torch import convert, synthetic
@@ -24,6 +23,8 @@ from rgbd360_tpu_torch.slam import odometry as TO
 from rgbd360_tpu_torch.utils.trace import StageTimer
 
 from test_torch_segmentation import assert_plane_sets_match, one_torch_thread  # noqa: F401
+
+from _reference import reference_builder
 
 SUB, LEVELS = 4, 3
 # The same pyramids on both sides (reference maps): the coarse rescue's
@@ -40,8 +41,8 @@ def _config(**kf):
 def _builder(cfg, jb=None) -> FrameBuilder:
     """The port's builder on the reference builder `jb`'s stitch maps."""
     cal = synthetic.calibration(cfg.rig)
-    builder = FrameBuilder(cal, cfg)
-    params = (jb or JaxBuilder(cal, cfg))._params
+    builder = FrameBuilder(cal, cfg, device="cpu")
+    params = (jb or reference_builder(cfg))._params
     maps = {k: np.asarray(params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
     builder.load_state_dict(
         convert.stitch_maps_state_dict(maps, cfg.dense.pyramid_levels), strict=False)
@@ -67,7 +68,7 @@ def test_forced_fallback_reaches_the_yaw_rescue():
     and returns the best good result.  Both packages, on the same
     pyramids, try the same seeds and return the same pose."""
     cfg = _config(fallback_error=0.0)
-    jb = JaxBuilder(synthetic.calibration(cfg.rig), cfg)
+    jb = reference_builder(cfg)
     tb = _builder(cfg, jb)
     pyrs = [tb.build_with_pyramid(RigFrame(torch.from_numpy(r), torch.from_numpy(d)))[1]
             for r, d in synthetic.captures(2, SUB)]
@@ -104,7 +105,7 @@ def test_make_state_from_sphere_matches_reference():
     At a 160x960 sphere: the tracker segments it at a quarter of that, and
     the tests' usual 80x480 sphere leaves too few points for any plane."""
     cfg = synthetic.config(2, LEVELS)
-    jb = JaxBuilder(synthetic.calibration(cfg.rig), cfg)
+    jb = reference_builder(cfg)
     tb = _builder(cfg, jb)
     rgb, d = synthetic.captures(1, 2)[0]
     sphere = tb.build(RigFrame(torch.from_numpy(rgb), torch.from_numpy(d)))

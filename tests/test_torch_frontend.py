@@ -23,6 +23,8 @@ from rgbd360_tpu_torch.core import frame as TF
 
 from test_torch_segmentation import assert_plane_sets_match, one_torch_thread  # noqa: F401
 
+from _reference import reference_inputs
+
 SUB, LEVELS = 4, 3
 # The clouds through the bilateral (XLA's exp and fused multiply-adds, see
 # tests/test_torch_bilateral.py) and the rig transform's 3-term dot
@@ -45,8 +47,9 @@ def _builders(downsample_cloud=True, bilateral=True):
     cfg = synthetic.config(SUB, LEVELS)
     cfg = cfg.replace(rig=dataclasses.replace(cfg.rig, bilateral=bilateral))
     cal = synthetic.calibration(cfg.rig)
-    jb = JF.FrameBuilder(cal, cfg, downsample_cloud=downsample_cloud)
-    tb = TF.FrameBuilder(cal, cfg, downsample_cloud=downsample_cloud)
+    jcfg, jcal = reference_inputs(cfg)
+    jb = JF.FrameBuilder(jcal, jcfg, downsample_cloud=downsample_cloud)
+    tb = TF.FrameBuilder(cal, cfg, downsample_cloud=downsample_cloud, device="cpu")
     maps = {k: np.asarray(jb._params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
     tb.load_state_dict(convert.stitch_maps_state_dict(maps, LEVELS), strict=False)
     return jb, tb

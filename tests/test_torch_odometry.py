@@ -11,7 +11,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from rgbd360_tpu.core.frame import FrameBuilder as JaxBuilder
 from rgbd360_tpu_torch import convert, synthetic
 from rgbd360_tpu_torch.core.frame import FrameBuilder
 
@@ -20,6 +19,7 @@ from test_torch_segmentation import one_torch_thread  # noqa: F401
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import chip_smoke  # noqa: E402
 import torch_port_golden  # noqa: E402
+from _reference import reference_builder  # noqa: E402
 
 N, SUB, LEVELS = 4, 4, 3
 # On the reference's stitch maps the two packages solve the same pyramids:
@@ -40,9 +40,9 @@ def raws():
 def _builder(reference_maps: bool) -> FrameBuilder:
     cfg = synthetic.config(SUB, LEVELS)
     cal = synthetic.calibration(cfg.rig)
-    builder = FrameBuilder(cal, cfg)
+    builder = FrameBuilder(cal, cfg, device="cpu")
     if reference_maps:
-        params = JaxBuilder(cal, cfg)._params
+        params = reference_builder(cfg)._params
         maps = {k: np.asarray(params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
         builder.load_state_dict(convert.stitch_maps_state_dict(maps, LEVELS), strict=False)
     return builder

@@ -9,15 +9,16 @@ import torch
 import jax.numpy as jnp
 
 from rgbd360_tpu.calibration.solver import construction_spec_rt as jax_spec_rt
-from rgbd360_tpu.config import RigConfig, default_config
-from rgbd360_tpu.core.frame import FrameBuilder as JaxFrameBuilder
 from rgbd360_tpu.ops import camera as jcam, se3 as jse3, stitch as jst
 from rgbd360_tpu.ops import undistort as jund
 from rgbd360_tpu_torch import convert, synthetic
 from rgbd360_tpu_torch.calibration.spec import construction_spec_rt
+from rgbd360_tpu_torch.config import RigConfig
 from rgbd360_tpu_torch.core.frame import FrameBuilder
 from rgbd360_tpu_torch.ops import camera as tcam, se3 as tse3, stitch as tst
 from rgbd360_tpu_torch.ops import undistort as tund
+
+from _reference import reference_builder
 
 # asin/atan2/sin/cos and 3-term sums differ by a few ulps between XLA's and
 # PyTorch's CPU kernels: 1e-6 absolute on O(1) values (~8 ulps).
@@ -161,8 +162,8 @@ def small_builders():
     through `convert`, config, captures) at the 8x48x64 rig."""
     cfg = synthetic.config(5, pyramid_levels=3)
     cal = synthetic.calibration(cfg.rig)
-    jb = JaxFrameBuilder(cal, cfg)
-    tb = FrameBuilder(cal, cfg)
+    jb = reference_builder(cfg)
+    tb = FrameBuilder(cal, cfg, device="cpu")
     params = {k: np.asarray(v) for k, v in jb._params.items()}
     seam = np.asarray(jst.seam_mask_from_maps(jb.maps, 1))
     levels = [seam[:: 2**i, :: 2**i] for i in range(cfg.dense.pyramid_levels)]

@@ -30,6 +30,7 @@ from test_planes import _box_scene
 PLANE_ATOL = 1e-4
 AREA_RTOL = 1e-5
 CFG = SegmentationConfig(min_area=0.1)
+TCFG = convert.config_from_reference(CFG)  # the port's own dataclass
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -189,9 +190,9 @@ def test_segment_planes_sensor_matches_reference(box_sensors, box_ref):
     """One batched call over the sensors, each against the reference's
     per-sensor segmentation."""
     xyz, rgb, valid = box_sensors
-    got = TS.segment_planes_sensor(_t(xyz), _t(rgb), _t(valid), CFG)
-    assert got.normal.shape == (2, CFG.max_planes_sensor, 3)
-    assert got.hull.shape == (2, CFG.max_planes_sensor, CFG.hull_dirs, 3)
+    got = TS.segment_planes_sensor(_t(xyz), _t(rgb), _t(valid), TCFG)
+    assert got.normal.shape == (2, TCFG.max_planes_sensor, 3)
+    assert got.hull.shape == (2, TCFG.max_planes_sensor, TCFG.hull_dirs, 3)
     for s in range(2):
         ref = {k: v[s] for k, v in _np(box_ref).items()}
         assert ref["valid"].sum() >= 3
@@ -210,10 +211,10 @@ def test_transform_and_merge_match_reference(box_sensors, box_ref):
     rt[0, :3, 3] = [0.1, -0.2, 0.3]
     rt[1] = rt[0]
     rt[1, :3, 3] -= rt[0, :3, :3] @ np.float32([0.2, 0.0, 0.0])  # undo the shift
-    per = TS.segment_planes_sensor(_t(xyz), _t(rgb), _t(valid), CFG)
+    per = TS.segment_planes_sensor(_t(xyz), _t(rgb), _t(valid), TCFG)
     moved = TS.transform_planes(per, _t(rt))
-    merged = TS.merge_plane_sets(TS.concat_sets(moved), CFG)
-    assert merged.valid.shape == (CFG.max_planes,)
+    merged = TS.merge_plane_sets(TS.concat_sets(moved), TCFG)
+    assert merged.valid.shape == (TCFG.max_planes,)
 
     ref_sets = []
     for k in range(2):

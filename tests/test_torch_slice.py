@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from rgbd360_tpu.config import DenseRegConfig
 from rgbd360_tpu.registration import dense as JD
-from rgbd360_tpu_torch import synthetic
+from rgbd360_tpu_torch import convert, synthetic
 from rgbd360_tpu_torch.core.frame import FrameBuilder
 from rgbd360_tpu_torch.core.frame import RigFrame
 from rgbd360_tpu_torch.registration import dense as TD
@@ -24,6 +24,7 @@ from __graft_entry__ import _synthetic_pair
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import chip_smoke  # noqa: E402
 import torch_port_golden  # noqa: E402
+from _reference import reference_builder  # noqa: E402
 
 
 def test_smoke_slice_matches_golden_script():
@@ -36,7 +37,7 @@ def test_smoke_slice_matches_golden_script():
     n, sub, levels = 2, 5, 3
     ref = torch_port_golden.track_pairs_jax(n, sub, levels)
     cfg = synthetic.config(sub, levels)
-    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
+    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg, device="cpu")
     frames = [
         RigFrame(torch.from_numpy(rgb), torch.from_numpy(d))
         for rgb, d in synthetic.captures(n, sub)
@@ -62,11 +63,8 @@ def test_smoke_batch_matches_golden_script():
     ref = torch_port_golden.batch_jax(sub, levels, jittered=False)
     cfg = synthetic.config(sub, levels)
     cal = synthetic.calibration(cfg.rig)
-    builder = FrameBuilder(cal, cfg)
-    from rgbd360_tpu.core.frame import FrameBuilder as JaxBuilder
-    from rgbd360_tpu_torch import convert
-
-    params = JaxBuilder(cal, cfg)._params
+    builder = FrameBuilder(cal, cfg, device="cpu")
+    params = reference_builder(cfg)._params
     maps = {k: np.asarray(params[k]) for k in ("sensor", "u", "v", "scale", "valid")}
     builder.load_state_dict(convert.stitch_maps_state_dict(maps, levels), strict=False)
     aligner = TD.DenseAligner(chip_smoke.batch_dense_config(cfg))
@@ -110,9 +108,10 @@ def test_entry_forward_twin():
     pj, hj, ej, ij = jax.device_get(jax.jit(fwd)(g1, d1, g2, d2, jnp.eye(4)))
 
     t = [torch.tensor(np.asarray(a)) for a in (g1, d1, g2, d2)]
-    p1 = TD.build_frame_pyramid(t[0], t[1], cfg)
-    p2 = TD.build_frame_pyramid(t[2], t[3], cfg)
-    res = TD.DenseAligner(cfg).align(p1, p2, torch.eye(4), TD.PHOTO_DEPTH)
+    tcfg = convert.config_from_reference(cfg)
+    p1 = TD.build_frame_pyramid(t[0], t[1], tcfg)
+    p2 = TD.build_frame_pyramid(t[2], t[3], tcfg)
+    res = TD.DenseAligner(tcfg).align(p1, p2, torch.eye(4), TD.PHOTO_DEPTH)
     np.testing.assert_allclose(res.pose.numpy(), pj, atol=1e-4)
     assert np.abs(res.hessian.numpy() - hj).max() <= 1e-3 * np.abs(hj).max()
     np.testing.assert_allclose(float(res.error), float(ej), rtol=1e-3)

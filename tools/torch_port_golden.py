@@ -49,7 +49,7 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 import jax  # noqa: E402
 
@@ -64,7 +64,8 @@ from rgbd360_tpu.ops import stitch as stitch_ops  # noqa: E402
 from rgbd360_tpu.io.bin_format import RawRigFrame  # noqa: E402
 from rgbd360_tpu.registration import dense as D  # noqa: E402
 from rgbd360_tpu.slam.odometry import FrameToFrameOdometry  # noqa: E402
-from rgbd360_tpu_torch import synthetic  # noqa: E402
+from rgbd360_tpu_torch import convert, synthetic  # noqa: E402
+from _reference import reference_builder  # noqa: E402
 
 DATA = ROOT / "rgbd360_tpu_torch" / "data"
 BATCH_FRAMES = 5  # keyframe 0 and a batch of 4
@@ -79,9 +80,8 @@ walk_seeds = synthetic.walk_seeds
 
 def track_pairs_jax(n_frames: int, subsample: int = 1, pyramid_levels: int = 5) -> dict:
     """The reference's run of the smoke's slice (see the module doc)."""
-    cfg = synthetic.config(subsample, pyramid_levels)
-    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
-    aligner = D.DenseAligner(cfg.dense)
+    builder = reference_builder(synthetic.config(subsample, pyramid_levels))
+    aligner = D.DenseAligner(builder.config.dense)
     pyrs = [
         builder.build_with_pyramid(RigFrame(jnp.asarray(rgb), jnp.asarray(d)))[1]
         for rgb, d in synthetic.captures(n_frames, subsample)
@@ -140,8 +140,8 @@ def batch_jax(subsample: int = 1, pyramid_levels: int = 5,
               jittered: bool = True) -> dict:
     """The reference's run of the batch phase (see the module doc); without
     `jittered`, the branch keys hold branch 0 only."""
-    cfg = synthetic.config(subsample, pyramid_levels)
-    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
+    builder = reference_builder(synthetic.config(subsample, pyramid_levels))
+    cfg = builder.config
     aligner = D.DenseAligner(dataclasses.replace(cfg.dense, salient_pixels=salient_pixels))
     caps = synthetic.captures(BATCH_FRAMES, subsample)
     pyrs = [
@@ -190,9 +190,10 @@ def odometry_jax(n_frames: int = 6, subsample: int = 1, pyramid_levels: int = 5,
                  config=None) -> dict:
     """The reference's run of the smoke's odometry phase (see the module
     doc); `config` replaces the synthetic configuration (e.g. a low
-    `fallback_error`, which drives the seed chain to the yaw rescue)."""
+    `fallback_error`, which drives the seed chain to the yaw rescue); both
+    are the port's `FrameworkConfig`."""
     cfg = config or synthetic.config(subsample, pyramid_levels)
-    tracker = FrameToFrameOdometry(FrameBuilder(synthetic.calibration(cfg.rig), cfg))
+    tracker = FrameToFrameOdometry(reference_builder(cfg))
     seeds, pbs = [], []
     align, register = tracker.aligner.align, tracker.plane_reg.register
 
@@ -256,8 +257,7 @@ def main(argv=None) -> None:
         print(f"wrote {out_dir / 'smoke_golden.npz'}")
         print("axial steps (m):", res["poses"][:, 0, 3].tolist())
         print("iterations per level:", res["iters"].tolist())
-    cfg = synthetic.config()
-    maps = FrameBuilder(synthetic.calibration(cfg.rig), cfg)._params
+    maps = reference_builder(synthetic.config())._params
     np.savez_compressed(
         out_dir / "reference_stitch_maps.npz",
         sensor=np.asarray(maps["sensor"]).astype(np.int8),

@@ -60,12 +60,45 @@ g. frame-to-frame odometry at full size with the default config (bilateral
    agrees with the first; K1 and K2 launched.  Timed: `process` and
    `build_full` per frame, the tracker's stages, PbMap `register`; counted:
    host syncs per frame (PyTorch's sync debug mode, which misses some, so a
-   lower bound), one profiled frame with its host waits and device-to-host
-   copies as the profiler sees them, and one profile of each of its stages
-   (the bilateral and the connected-component scans alone).
+   lower bound), and, in phase h, one profiled frame with its host waits
+   and device-to-host copies as the profiler sees them, and one profile of
+   each of its stages (the bilateral and the connected-component scans
+   alone).
+i. Keyframe SLAM at full size with the default config (map capacity 64
+   keyframes / 512 edges): `KeyframeSLAM(FrameBuilder(...))` takes a closed
+   loop of 24 raw captures in the octagon room, each through
+   `process(raw)`, then `flush()`.  Checked against the JAX golden
+   (`data/keyframe_golden.npz`, `tools/torch_port_golden.py
+   --keyframe-only`), for the deferred (default) and the synchronous
+   keyframe events: the same per-frame flags (`keyframe`, `lost`,
+   `relocalized`), the same edges `(i, j, is_lc)`, the same number of loop
+   closures, the same partition up to relabelling, the fused tracked frame
+   on every healthy frame, `trajectory` and `optimized_trajectory()` within
+   KF_TOL_M / KF_TOL_RAD, each loop closure's measured pose within
+   LC_EDGE_TOL of the nearest of the golden's solves of that closure from
+   micrometre-jittered seeds, the final chi2 within KF_CHI2_RTOL, the
+   ATE no worse than the golden's by more than 5 mm.  Deferred against
+   synchronous events: the same keyframes, edges and closures, nothing
+   pending after `flush()`, optimized trajectories within 0.02 m.  A second
+   synchronous run after `reset()` is identical bit for bit.  A kidnapped
+   rig (`synthetic.kidnap_captures`: frames 0-9, a blind capture, then
+   frames 18-21): lost at the blind capture, relocalised later, under
+   0.15 m off the ground truth there and at the end, through the golden's
+   branch (plane hypothesis or yaw rescue).  A checkpoint saved mid-loop and
+   resumed in a fresh tracker (its keyframe pyramids rebuilt from the
+   bfloat16 payload, through K1 and K2 without seam masks) gives the
+   uninterrupted run's keyframes and edges.  The solvers alone: a seeded
+   ring graph with a wrong closure at capacity 64 (dense LM) and 256
+   (LM-PCG) against the golden's chi2 and poses, DCS switching the wrong
+   closure off, a second solve identical; and the loop closer's scan and
+   the relocaliser over a map filled to 64 keyframes, against a loop over
+   the unbatched matcher.  Timed and counted: `process` per tracked and
+   per keyframe frame, the event's phases, host syncs per frame, the
+   solvers, the scan, peak memory, K1/K2 launches; one keyframe frame is
+   profiled in phase h;
 h. the measurements that need `torch.profiler` (the kernels' device times
-   of phases b and c, the profiled pyramid of phase d), put off until every
-   host-clock timing is taken: once a process has profiled once
+   of phases b and c, the profiled pyramid of phase d, the profiled frames
+   of phases g and i), put off until every host-clock timing is taken: once a process has profiled once
    its kernel launches cost more host time (measured on an H100: `process`
    100-119 ms per tracked frame in a fresh process, 129-192 ms after one
    profile), which would be read as the port's.
@@ -101,7 +134,13 @@ from rgbd360_tpu_torch.ops import _build, hopper_kernels as HK, se3
 from rgbd360_tpu_torch.ops import segmentation as seg_ops
 from rgbd360_tpu_torch.ops.bilateral import bilateral_depth
 from rgbd360_tpu_torch.registration import dense as D
-from rgbd360_tpu_torch.slam.odometry import FrameToFrameOdometry, fetch
+from rgbd360_tpu_torch.slam import graph as graph_ops
+from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
+from rgbd360_tpu_torch.slam.map import Map360
+from rgbd360_tpu_torch.slam.odometry import FrameToFrameOdometry, KeyframeSLAM, fetch
+from rgbd360_tpu_torch.slam.relocalizer import Relocalizer
+from rgbd360_tpu_torch.slam.topological import partition_map
+from rgbd360_tpu_torch.utils import metrics
 from rgbd360_tpu_torch.utils.trace import StageTimer
 
 DATA = Path(__file__).resolve().parent / "rgbd360_tpu_torch" / "data"
@@ -109,6 +148,8 @@ GOLDEN = DATA / "smoke_golden.npz"
 BATCH_GOLDEN = DATA / "batch_golden.npz"
 REFERENCE_MAPS = DATA / "reference_stitch_maps.npz"
 ODOMETRY_GOLDEN = DATA / "odometry_golden.npz"
+KEYFRAME_GOLDEN = DATA / "keyframe_golden.npz"
+LOOP_FRAMES = synthetic.KIDNAP_LOOP_FRAMES  # the closed loop of phase i (24 frames)
 N_FRAMES = 6
 BATCH_FRAMES = 5  # keyframe 0 and a batch of 4
 YAW_HYPOTHESES = 8
@@ -985,7 +1026,8 @@ def _count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-REGIONS = {"build", "stitch", "cloud", "pyramid", "segment", "register", "align"}
+REGIONS = {"build", "stitch", "cloud", "pyramid", "segment", "register", "align",
+           "fused_track", "register_pbmap", "register_dense", "loop_closure", "optimize"}
 
 
 # CUDA runtime calls that block the host; `cudaDeviceSynchronize` is left
@@ -1064,19 +1106,22 @@ def check_odometry_phase(smi: str) -> None:
           f"{syncs}; of which build_full {parts['build_full']}, register + fetch "
           f"{parts['register']}")
 
-    tracker = FrameToFrameOdometry(builder)
-    tracker.process(raws[0])
-    prev = tracker.prev
-    wall, busy, ops, waits, d2h = _profile(lambda: tracker.process(raws[1]))
-    print(f"odometry, one profiled frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-          f"idle share {1 - busy / wall:.3f}, device ops {ops}, host waits {waits}, "
-          f"device-to-host copies {d2h}")
-    for name, fn in _odometry_stages(builder, tracker, prev, frame).items():
-        fn()
-        wall, busy, ops, waits, d2h = _profile(fn)
-        print(f"odometry stage {name}: wall {wall:.3f} ms (profiled), device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, device ops {ops}, "
-              f"host waits {waits}, device-to-host copies {d2h}")
+    def profiled() -> None:
+        tracker = FrameToFrameOdometry(builder)
+        tracker.process(raws[0])
+        prev = tracker.prev
+        wall, busy, ops, waits, d2h = _profile(lambda: tracker.process(raws[1]))
+        print(f"odometry, one profiled frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f}, device ops {ops}, host waits {waits}, "
+              f"device-to-host copies {d2h}")
+        for name, fn in _odometry_stages(builder, tracker, prev, frame).items():
+            fn()
+            wall, busy, ops, waits, d2h = _profile(fn)
+            print(f"odometry stage {name}: wall {wall:.3f} ms (profiled), device busy "
+                  f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, device ops {ops}, "
+                  f"host waits {waits}, device-to-host copies {d2h}")
+
+    _DEFERRED.append(profiled)
 
 
 def _odometry_stages(builder, tracker, prev, frame) -> dict:
@@ -1101,7 +1146,661 @@ def _odometry_stages(builder, tracker, prev, frame) -> dict:
     }
 
 
-def main() -> int:
+# ------------------------------------------------------------- phase i
+#
+# Phase i against the JAX golden.  A tracked solve of this loop (15 degrees
+# and 0.21 m per frame) leaves most pyramid levels through the
+# accept-if-improved exit after 1-4 steps; rounding decides which step is
+# the last, and two runs' poses then end up to 1.3 cm apart while their
+# residuals agree to 3e-3 relative (measured on frame 2 between the
+# reference and the port, BOTH on the CPU and on the reference's stitch
+# maps; on the card 1.21e-2 m, 2.1e-3 rad at most).  Poses are relative to
+# the keyframe, so the gaps do not chain: the frame after is back within
+# 0.1-0.5 mm.  With deferred events, in addition, the frame at which an
+# event's optimized poses land depends on when its phases are ready (a race
+# between host and device, and another in the reference's run on the CPU;
+# the golden's own two modes differ by 1.0e-2 m): 7.9e-3 rad measured.
+# Hence 0.02 m (the reference's bound for deferred against synchronous
+# events) and 0.01 rad for both modes; the decisions, which are exact, and
+# the ATE carry the comparison.
+KF_TOL_M, KF_TOL_RAD = 0.02, 0.01
+# The graph's information matrices are the Hessians of 600k-pixel solves
+# (chi2 4.6e4 with millimetres of residual), so the final chi2 moves with
+# the edges' millimetres: measured 1.35e-3 relative.  The solvers alone,
+# on the same graph as the reference, are held to SOLVER_CHI2_RTOL.
+KF_CHI2_RTOL = 5e-3
+SOLVER_CHI2_RTOL = 1e-3
+KF_ATE_SLACK_M = 5e-3
+ASYNC_SYNC_TOL_M = 0.02  # the reference's own bound (its async-vs-sync test)
+KIDNAP_TOL_M = 0.15  # the reference's own bound (its kidnapped-robot test)
+# A resumed run tracks against keyframe pyramids rebuilt from the
+# bfloat16 payload without seam masks; bfloat16 keeps 8 bits, so a depth of
+# 4-8 m is stored in steps of 3.1 cm.  Measured 8.1e-3 m from the
+# uninterrupted run (the reference holds its own, shorter, sequence to
+# 2e-3 m); the bound is the tracked solves' own (KF_TOL_M).
+RESUME_TOL_M = 0.02
+SOLVER_POSE_TOL = 1e-4  # m and rad, a solved graph against the golden's
+# A closure's edge is the pose of its verification (or of its heading
+# rescue), salient solves that have several solutions within reach of
+# rounding (see the batch phases): it is held to the NEAREST of the
+# reference's solves from micrometre-jittered seeds.  Measured on an H100:
+# the loop's closure 2-5 (accepted through the rescue in both packages)
+# lies 7.1e-4 m, 4.5e-5 rad from the nearest of 53 (8.5e-4 m from the
+# unjittered one), while the 53 spread over 2.1e-4 m only: here it is not
+# the seed that separates the packages but their stitch maps, which differ
+# on the sensor-tie columns (the batch phases load the reference's maps for
+# that reason; this phase runs the port's own).  Hence 4x the golden's
+# tolerance in translation.
+LC_EDGE_TOL = (4 * GOLDEN_TOL_M, GOLDEN_TOL_RAD)
+SCAN_KEYFRAMES = 64
+
+
+def loop_raws(n_frames: int, subsample: int = 1, frames=None) -> list:
+    """The closed loop's captures (`synthetic.loop_captures`) as
+    `RawRigFrame`s, the input of `KeyframeSLAM.process`."""
+    return [RawRigFrame(rgb=rgb, depth_mm=d)
+            for rgb, d in synthetic.loop_captures(n_frames, subsample, frames)]
+
+
+def keyframe_record(slam, gt=None) -> dict:
+    """What a finished `KeyframeSLAM` run is compared on (call after
+    `flush()`): per-frame flags, the edge list sorted, the areas, both
+    trajectories, the final graph's chi2 and the per-keyframe event counts
+    with the edges' measured poses (the keys of the golden tool's
+    `keyframe_record`)."""
+    ev = slam.events
+    n_kf, n_e = int(slam.map.n_kf), int(slam.map.n_edges)
+    edges = np.concatenate(
+        [slam.map.graph.edges_ij[:n_e].cpu().numpy(),
+         slam.map.edge_is_lc[:n_e, None].cpu().numpy().astype(np.int32)], axis=1)
+    kf_ev = [e for e in ev if e["keyframe"]]
+    order = np.lexsort(edges.T[::-1])  # stable: equal (i, j, is_lc) keep their order
+    out = {
+        "keyframe": np.array([e["keyframe"] for e in ev]),
+        "lost": np.array([bool(e.get("lost", False)) for e in ev]),
+        "relocalized": np.array([bool(e["relocalized"]) for e in ev]),
+        "edges": edges[order],
+        "edge_rel": slam.map.graph.rel[:n_e].cpu().numpy()[order],
+        "n_loop_closures": np.int64(slam.n_loop_closures),
+        "area": slam.map.area[:n_kf].cpu().numpy(),
+        "n_areas": np.int64(int(slam.map.n_areas)),
+        "trajectory": np.stack(slam.trajectory).astype(np.float32),
+        "optimized_trajectory": slam.optimized_trajectory().astype(np.float32),
+        "opt_poses": slam.map.opt_poses[:n_kf].cpu().numpy(),
+        "chi2": np.float32(graph_ops.graph_chi2(slam.map.graph).item()),
+        "fused_track": np.int64(slam.timer.counts.get("fused_track", 0)),
+        "connections": np.array([e.get("connections", 0) for e in kf_ev]),
+        "loop_closures": np.array([e.get("loop_closures", 0) for e in kf_ev]),
+        "optimized": np.array([bool(e.get("optimized", False)) for e in kf_ev]),
+        "av_depth_residual": np.array([e.get("av_depth_residual", np.nan) for e in ev]),
+    }
+    if gt is not None:
+        out["gt"] = np.asarray(gt, np.float32)
+    return out
+
+
+def keyframe_config(cfg, async_events: bool):
+    return cfg.replace(kf=dataclasses.replace(cfg.kf, async_kf_events=async_events))
+
+
+def run_keyframe(slam, raws, gt=None) -> dict:
+    """`KeyframeSLAM` over raw captures, each through `process`, then
+    `flush()`; the record, and `process_ms` per frame (host clock,
+    synchronized on the card)."""
+    ms = []
+    for raw in raws:
+        t0 = time.perf_counter()
+        slam.process(raw)
+        if slam.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    slam.flush()
+    out = keyframe_record(slam, gt)
+    out["process_ms"] = np.array(ms)
+    return out
+
+
+def same_partition(a, b) -> bool:
+    """Two area labellings are the same partition (equal up to a
+    permutation of the labels)."""
+    a, b = np.asarray(a), np.asarray(b)
+    pairs = set(zip(a.tolist(), b.tolist()))
+    return len(a) == len(b) and len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+def check_keyframe_decisions(got: dict, ref: dict, what: str) -> None:
+    """The decisions of one run against another's (the golden's, or the
+    port's own other mode): flags, keyframe frames, edges, closures,
+    partition up to relabelling."""
+    print(f"{what}: keyframes at frames {np.flatnonzero(got['keyframe']).tolist()}, lost "
+          f"{np.flatnonzero(got['lost']).tolist()}, relocalized "
+          f"{np.flatnonzero(got['relocalized']).tolist()}; {len(got['edges'])} edges, "
+          f"{int(got['edges'][:, 2].sum())} loop closures; connections per keyframe "
+          f"{got['connections'].tolist()}; areas {got['area'].tolist()}")
+    for k in ("keyframe", "lost", "relocalized"):
+        if not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"{what}: `{k}` flags {np.flatnonzero(got[k]).tolist()}, "
+                                 f"expected {np.flatnonzero(ref[k]).tolist()}")
+    if not np.array_equal(got["edges"], ref["edges"]):
+        raise AssertionError(f"{what}: edges (i, j, is_lc) {got['edges'].tolist()}, expected "
+                             f"{ref['edges'].tolist()}")
+    if int(got["n_loop_closures"]) != int(ref["n_loop_closures"]):
+        raise AssertionError(f"{what}: {got['n_loop_closures']} loop closures, expected "
+                             f"{ref['n_loop_closures']}")
+    if int(got["n_areas"]) != int(ref["n_areas"]) or not same_partition(got["area"], ref["area"]):
+        raise AssertionError(f"{what}: areas {got['area'].tolist()}, expected (up to "
+                             f"relabelling) {ref['area'].tolist()}")
+
+
+def check_closure_edges(got: dict, lc_verify: dict, what: str, tol: tuple = LC_EDGE_TOL) -> list:
+    """Each loop-closure edge's measured pose within `tol` (m, rad) of the
+    NEAREST of the reference's solves of that closure (its verification, or
+    its heading rescue where that was the accepted one) from
+    micrometre-jittered seeds (`lc_verify`: the golden's `lc_verify_*` keys
+    without the prefix).  Returns each closure's (m, rad) gap."""
+    edges, out = got["edges"], []
+    for n, (i, j) in enumerate(lc_verify["edges"].tolist()):
+        row = np.flatnonzero((edges == (i, j, 1)).all(axis=1))
+        if len(row) != 1:
+            raise AssertionError(f"{what}: closure {i}-{j} of the golden is no edge of this run")
+        branches = lc_verify["branch_poses"][:, n : n + 1]
+        gaps = [_pose_gaps(got["edge_rel"][row], b) for b in branches]
+        dt, dr = min(gaps, key=lambda g: g[0] / tol[0] + g[1] / tol[1])
+        spread = max(_pose_gaps(b, branches[0])[0] for b in branches)
+        print(f"{what}: closure {i}-{j} ({'rescue' if lc_verify['rescued'][n] else 'verification'}) "
+              f"vs the nearest of the golden's {len(gaps)} jittered solves: {dt:.3e} m, {dr:.3e} "
+              f"rad (tol {tol[0]}, {tol[1]}); to the unjittered one {gaps[0][0]:.3e} m, "
+              f"{gaps[0][1]:.3e} rad; the set spreads over {spread:.3e} m")
+        out.append((dt, dr))
+    if any(dt > tol[0] or dr > tol[1] for dt, dr in out):
+        raise AssertionError(f"{what}: a closure's pose leaves the golden's solves")
+    return out
+
+
+def check_keyframe_run(got: dict, golden: dict, what: str, tol_m: float = KF_TOL_M,
+                       tol_rad: float = KF_TOL_RAD, chi2_rtol: float = KF_CHI2_RTOL,
+                       edge_tol: tuple = (KF_TOL_M, KF_TOL_RAD)) -> dict:
+    """One loop run against the golden's run of the same mode: the
+    decisions, the fused tracked frame on every healthy frame, both
+    trajectories, the final chi2 and the ATE."""
+    check_keyframe_decisions(got, golden, f"{what} vs JAX golden")
+    if int(got["fused_track"]) != int(golden["fused_track"]) or got["fused_track"] < 1:
+        raise AssertionError(f"{what}: the fused tracked frame ran {got['fused_track']} times, "
+                             f"golden {golden['fused_track']} (of {len(got['keyframe']) - 1} "
+                             f"frames after the first)")
+    gaps, problems = {}, []
+    for k in ("trajectory", "optimized_trajectory"):
+        dt, dr = gaps[k] = _pose_gaps(got[k], golden[k])
+        print(f"{what} {k} vs JAX golden: max translation gap {dt:.3e} m (tol {tol_m}), "
+              f"max rotation gap {dr:.3e} rad (tol {tol_rad})")
+        if dt > tol_m or dr > tol_rad:
+            problems.append(f"{k} leaves the tolerance")
+    per_frame = np.linalg.norm(got["trajectory"][:, :3, 3] - golden["trajectory"][:, :3, 3], axis=1)
+    print(f"{what} trajectory vs JAX golden, per frame (mm): {(1e3 * per_frame).round(2).tolist()}")
+    # the edges' measured poses: tracked solves (odometry), PbMap poses,
+    # connection aligns, and the loop closures' salient verifications
+    for name, lc in (("odometry and connection", 0), ("loop-closure", 1)):
+        sel = got["edges"][:, 2] == lc
+        if sel.any():
+            dt, dr = gaps[f"edges_{lc}"] = _pose_gaps(got["edge_rel"][sel], golden["edge_rel"][sel])
+            print(f"{what}: {int(sel.sum())} {name} edges' measured poses vs JAX golden: "
+                  f"{dt:.3e} m, {dr:.3e} rad (tol {edge_tol[0]}, {edge_tol[1]})")
+            if dt > edge_tol[0] or dr > edge_tol[1]:
+                problems.append(f"{name} edges' poses leave the tolerance")
+    kf_gap = _pose_gaps(got["opt_poses"], golden["opt_poses"])
+    print(f"{what}: optimized keyframe poses {kf_gap[0]:.3e} m, {kf_gap[1]:.3e} rad from the "
+          f"golden's")
+    rel = abs(float(got["chi2"]) - float(golden["chi2"])) / max(float(golden["chi2"]), 1e-12)
+    print(f"{what}: final chi2 {float(got['chi2']):.6f}, golden {float(golden['chi2']):.6f} "
+          f"(relative gap {rel:.3e}, tol {chi2_rtol})")
+    if rel > chi2_rtol:
+        problems.append("final chi2 leaves the tolerance")
+    ate = metrics.ate_rmse(got["optimized_trajectory"], golden["gt"])
+    ate_ref = metrics.ate_rmse(golden["optimized_trajectory"], golden["gt"])
+    rpe_t, rpe_r = metrics.rpe(got["trajectory"], golden["gt"])
+    print(f"{what}: ATE {ate:.5f} m (golden {ate_ref:.5f} m, slack {KF_ATE_SLACK_M}); RPE "
+          f"{rpe_t:.5f} m, {rpe_r:.5f} rad; path length "
+          f"{metrics.trajectory_length(got['trajectory']):.3f} m")
+    if ate > ate_ref + KF_ATE_SLACK_M:
+        problems.append(f"ATE {ate} worse than the golden's {ate_ref}")
+    if problems:
+        raise AssertionError(f"{what}: " + "; ".join(problems))
+    return dict(gaps, chi2_rel=rel, ate=ate)
+
+
+def check_async_vs_sync(asy: dict, syn: dict, pending: int) -> float:
+    """The deferred pipeline reproduces the synchronous one (the
+    reference's own test): the same decisions, nothing pending after
+    `flush()`, optimized trajectories within ASYNC_SYNC_TOL_M."""
+    if pending:
+        raise AssertionError(f"{pending} keyframe events pending after flush()")
+    check_keyframe_decisions(asy, syn, "deferred vs synchronous events")
+    d = np.linalg.norm(asy["optimized_trajectory"][:, :3, 3]
+                       - syn["optimized_trajectory"][:, :3, 3], axis=1).max()
+    print(f"deferred vs synchronous events: optimized trajectories {d:.3e} m apart "
+          f"(tol {ASYNC_SYNC_TOL_M})")
+    if d > ASYNC_SYNC_TOL_M:
+        raise AssertionError("the deferred pipeline's trajectory leaves the synchronous one's")
+    return float(d)
+
+
+def check_identical(a: dict, b: dict, what: str) -> None:
+    """Two runs agree bit for bit in everything recorded."""
+    for k in a:
+        if k != "process_ms" and not np.array_equal(a[k], b[k], equal_nan=True):
+            raise AssertionError(f"{what}: `{k}` differs between the two runs")
+    print(f"{what}: identical, bit for bit")
+
+
+def run_kidnap(slam, raws, gt) -> dict:
+    """The kidnapped-rig run: the record, the frames at which the
+    relocaliser took the yaw rescue (`coarse_align` called while lost), and
+    each frame's distance to the ground truth."""
+    coarse, calls = slam.aligner.coarse_align, []
+
+    def record_coarse(*a, **kw):
+        calls.append(len(slam.events))
+        return coarse(*a, **kw)
+
+    slam.aligner.coarse_align = record_coarse
+    out = run_keyframe(slam, raws, gt)
+    slam.aligner.coarse_align = coarse
+    out["coarse_frames"] = np.asarray(calls, np.int64)
+    out["errs"] = np.linalg.norm(out["trajectory"][:, :3, 3] - np.asarray(gt)[:, :3, 3], axis=1)
+    return out
+
+
+def check_kidnap(got: dict, golden: dict) -> None:
+    """Lost at the blind capture, relocalised later, near the ground truth
+    there and at the end, through the golden's branch."""
+    teleport = synthetic.KIDNAP_ORDER.index(None)
+    reloc = np.flatnonzero(got["relocalized"])
+    print(f"kidnap: lost at {np.flatnonzero(got['lost']).tolist()}, relocalized at "
+          f"{reloc.tolist()}, yaw rescue at {got['coarse_frames'].tolist()} (golden "
+          f"{golden['coarse_frames'].tolist()}); distance to the ground truth "
+          f"{np.round(got['errs'], 4).tolist()}")
+    if not got["lost"][teleport]:
+        raise AssertionError("kidnap: the teleport was not detected as lost")
+    if len(reloc) == 0 or reloc[0] < teleport:
+        raise AssertionError("kidnap: never relocalized")
+    k = int(reloc[0])
+    if got["errs"][k] > KIDNAP_TOL_M or got["errs"][-1] > KIDNAP_TOL_M:
+        raise AssertionError(f"kidnap: relocalized {got['errs'][k]:.3f} m off, ended "
+                             f"{got['errs'][-1]:.3f} m off (tol {KIDNAP_TOL_M})")
+    for key in ("keyframe", "lost", "relocalized"):
+        if not np.array_equal(got[key], golden[key]):
+            raise AssertionError(f"kidnap: `{key}` flags {np.flatnonzero(got[key]).tolist()}, "
+                                 f"golden {np.flatnonzero(golden[key]).tolist()}")
+    if not np.array_equal(got["coarse_frames"], golden["coarse_frames"]):
+        raise AssertionError("kidnap: the relocalisation took another branch than the golden's")
+
+
+def run_checkpoint(builder, cfg, raws, cut: int, path) -> dict:
+    """Run `cut` frames, save a checkpoint, resume it in a FRESH tracker and
+    run the rest; the resumed tracker's record, and the pyramids it rebuilt
+    from the payload (`rebuilds`)."""
+    a = KeyframeSLAM(builder, cfg)
+    for raw in raws[:cut]:
+        a.process(raw)
+    a.save_checkpoint(str(path))
+    b = KeyframeSLAM(builder, cfg)
+    b.resume_from_checkpoint(str(path))
+    if b.current_kf != a.current_kf or b._n_kf_host != a._n_kf_host:
+        raise AssertionError("the resumed tracker is not where the saved one was")
+    kf_pyramid, rebuilds = b.loop_closer.kf_pyramid, []
+
+    def counted(map360, k, cache=None):
+        if cache is None or k not in cache:
+            rebuilds.append(k)
+        return kf_pyramid(map360, k, cache)
+
+    b.loop_closer.kf_pyramid = counted
+    out = run_keyframe(b, raws[cut:])
+    out["rebuilds"] = np.asarray(rebuilds, np.int64)
+    return out
+
+
+def check_checkpoint(got: dict, full: dict, cut: int, tol_m: float = RESUME_TOL_M) -> None:
+    """The resumed run gives the uninterrupted run's keyframes and edges,
+    and a trajectory within `tol_m` of it."""
+    for k in ("keyframe", "lost", "relocalized"):
+        if not np.array_equal(got[k], full[k][cut:]):
+            raise AssertionError(f"checkpoint: `{k}` flags after the resume "
+                                 f"{np.flatnonzero(got[k]).tolist()}, uninterrupted "
+                                 f"{np.flatnonzero(full[k][cut:]).tolist()}")
+    if not np.array_equal(got["edges"], full["edges"]):
+        raise AssertionError(f"checkpoint: edges {got['edges'].tolist()}, uninterrupted "
+                             f"{full['edges'].tolist()}")
+    d = np.linalg.norm(got["trajectory"][:, :3, 3] - full["trajectory"][:, :3, 3], axis=1).max()
+    print(f"checkpoint at frame {cut}: the same keyframes and {len(got['edges'])} edges; "
+          f"trajectory {d:.3e} m from the uninterrupted run (tol {tol_m}); "
+          f"{len(got['rebuilds'])} keyframe pyramids rebuilt from the payload "
+          f"(keyframes {got['rebuilds'].tolist()})")
+    if got["trajectory"].shape != full["trajectory"].shape or d > tol_m:
+        raise AssertionError("checkpoint: the resumed trajectory leaves the uninterrupted one")
+    if len(got["rebuilds"]) == 0:
+        raise AssertionError("checkpoint: no keyframe pyramid was rebuilt from the payload")
+
+
+def solve_rings(device) -> dict:
+    """`synthetic.ring_graph` through the dense LM at capacity 64 and the
+    LM-PCG at capacity 256, both with DCS (the golden tool's `solvers_jax`):
+    poses, chi2, iterations, switches, and each solver's wall ms."""
+    out = {}
+    for name, n_live, cap, e_cap, pcg in (("ring64", 48, 64, 512, False),
+                                          ("ring256", 200, 256, 512, True)):
+        leaves, loop_mask, _ = synthetic.ring_graph(n_live, cap, e_cap)
+        g = convert.pose_graph_from_numpy(leaves, device)
+        lm = torch.from_numpy(loop_mask).to(device)
+        counts: list = []
+        solve = ((lambda: graph_ops.optimize_pose_graph_pcg(g, 10, loop_mask=lm, cg_counts=counts))
+                 if pcg else (lambda: graph_ops.optimize_pose_graph(g, 10, loop_mask=lm)))
+        solve()  # warm-up
+        counts.clear()
+        t0 = time.perf_counter()
+        poses, chi2, iters = solve()
+        chi2_host = float(chi2)  # the copy waits for the solve
+        ms = 1e3 * (time.perf_counter() - t0)
+        again = solve()[0]
+        out.update({
+            f"{name}_poses": poses.cpu().numpy(), f"{name}_chi2": np.float32(chi2_host),
+            f"{name}_iters": np.int64(iters), f"{name}_ms": ms,
+            f"{name}_switches": graph_ops.loop_closure_switches(g, poses, lm).cpu().numpy(),
+            f"{name}_chi2_start": np.float32(float(graph_ops.graph_chi2(g))),
+            f"{name}_identical": bool(torch.equal(poses, again)),
+            f"{name}_cg": np.asarray(counts[: int(iters)], np.int64),
+            f"{name}_wrong": np.int64(int(leaves[5].sum()) - 1),
+            f"{name}_live": np.int64(n_live),
+        })
+    return out
+
+
+def check_solvers(got: dict, golden: dict, smi: str = "") -> None:
+    problems = []
+    for name, solver in (("ring64", "dense LM, capacity 64"), ("ring256", "LM-PCG, capacity 256")):
+        n = int(got[f"{name}_live"])
+        rel = abs(float(got[f"{name}_chi2"]) - float(golden[f"{name}_chi2"])) / float(
+            golden[f"{name}_chi2"])
+        dt, dr = _pose_gaps(got[f"{name}_poses"][:n], golden[f"{name}_poses"][:n])
+        s = got[f"{name}_switches"]
+        wrong = int(got[f"{name}_wrong"])
+        cg = got[f"{name}_cg"]
+        print(f"solver {name} ({solver}): chi2 {float(got[f'{name}_chi2_start']):.3f} -> "
+              f"{float(got[f'{name}_chi2']):.5f} (golden {float(golden[f'{name}_chi2']):.5f}, "
+              f"relative gap {rel:.3e}, tol {SOLVER_CHI2_RTOL}) in {int(got[f'{name}_iters'])} LM "
+              f"iterations (golden {int(golden[f'{name}_iters'])})"
+              + (f", CG iterations {cg.tolist()}" if len(cg) else "")
+              + f"; poses {dt:.3e} m, {dr:.3e} rad from the golden's (tol {SOLVER_POSE_TOL}); "
+              f"wrong closure's switch {s[wrong]:.4f} (golden "
+              f"{golden[f'{name}_switches'][wrong]:.4f}); {got[f'{name}_ms']:.3f} ms {smi}")
+        if rel > SOLVER_CHI2_RTOL or dt > SOLVER_POSE_TOL or dr > SOLVER_POSE_TOL:
+            problems.append(f"solver {name} leaves the golden's tolerance")
+        # odometry edges stay hard (1.0); the wrong closure is switched off;
+        # every switch is the golden's
+        gap = np.abs(s - golden[f"{name}_switches"]).max()
+        if s[wrong] > 0.25 or (s[: n - 1] != 1.0).any() or gap > 1e-2:
+            problems.append(f"solver {name}: DCS switches {s[n - 1: wrong + 1].tolist()} "
+                            f"(golden's differ by {gap:.3e})")
+        if not got[f"{name}_identical"]:
+            problems.append(f"solver {name}: a second solve differs from the first")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def filled_map(cfg, states, poses, n_kf: int, device) -> Map360:
+    """A map filled to `n_kf` keyframes from the frame states of a loop run
+    (cycled, each lap shifted 5 cm sideways), with odometry edges between
+    consecutive keyframes, partitioned by the host partitioner."""
+    m = Map360.empty(cfg.map, cfg.sphere.height, cfg.sphere.width, cfg.seg.max_planes,
+                     cfg.seg.hull_dirs, device)
+    n = len(states)
+    for k in range(n_kf):
+        st, pose = states[k % n], np.array(poses[k % n], np.float32)
+        pose[1, 3] += 0.05 * (k // n)
+        m = m.add_keyframe(pose, st.sphere.sphere_gray, st.sphere.sphere_depth, st.planes,
+                           n_live=k)
+    ij = np.stack([np.arange(n_kf - 1), np.arange(1, n_kf)], axis=1)
+    eye4 = np.tile(np.eye(4, dtype=np.float32), (n_kf - 1, 1, 1))
+    eye6 = np.tile(np.eye(6, dtype=np.float32), (n_kf - 1, 1, 1))
+    m = m.add_edges(ij, eye4, eye6, np.full(n_kf - 1, 0.7, np.float32),
+                    np.zeros(n_kf - 1, bool), n_live=0)
+    # co-visibility falling off with distance along the sequence
+    idx = np.arange(n_kf)
+    sso = np.clip(1.0 - np.abs(idx[:, None] - idx[None, :]) / 8.0, 0.0, 1.0).astype(np.float32)
+    m.sso[:n_kf, :n_kf] = torch.from_numpy(sso).to(device)
+    area, n_areas = partition_map(m, cfg.map.sso_partition_threshold)
+    m.area.copy_(torch.from_numpy(area))
+    m.n_areas.fill_(n_areas)
+    return m
+
+
+def scan_filled_map(cfg, m: Map360, states, query: int) -> dict:
+    """The loop closer's scan and the relocaliser over a filled map for the
+    planes of frame `query`, against a loop over the unbatched matcher."""
+    from rgbd360_tpu_torch.registration import planes as P
+
+    n_kf = int(m.n_kf)
+    closer, reloc = LoopCloser(cfg), Relocalizer(cfg)
+    planes = states[query].planes
+    pose = m.opt_poses[query].cpu().numpy()
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    scan, scan_ms = timed(lambda: fetch(closer.scan_dispatch(m, planes, pose, n_kf - 1)))
+    r, reloc_ms = timed(lambda: reloc.relocalize(m, planes))
+    gate = torch.arange(m.kf_capacity, device=m.device) < n_kf
+    n_b, area_b, pose_b, _, obs_b = fetch(closer._batch_match_impl(planes, m.planes, gate))
+    n_loop = []
+    for k in range(n_kf):
+        one = type(planes)(**{f.name: getattr(m.planes, f.name)[k]
+                              for f in dataclasses.fields(planes)})
+        n_loop.append(P.match_planes(one, planes, cfg.matcher, P.PLANAR_3DOF)[1])
+    n_loop = torch.stack(n_loop).cpu().numpy()
+    # the relocaliser's rule on the scan's results: most matches, then newest
+    rc = cfg.reloc
+    ok = obs_b.numpy() & (n_b.numpy() >= rc.min_matches) & (area_b.numpy() > rc.min_area)
+    expect = int(np.argmax(np.where(ok, n_b.numpy() * 1000 + np.arange(len(ok)), -1)))
+    return dict(scan_idx=scan[0].numpy(), scan_ok=scan[1].numpy(), scan_ms=scan_ms,
+                reloc_kf=r.kf, reloc_success=r.success, reloc_pose=r.pose, reloc_ms=reloc_ms,
+                reloc_matches=r.n_matches, n_batched=n_b.numpy()[:n_kf], n_loop=n_loop,
+                areas=int(m.n_areas), reloc_expect=expect, pose_expect=pose_b[expect].numpy(),
+                valid_planes=[int(st.planes.valid.sum()) for st in states],
+                non_finite=[i for i, st in enumerate(states) if not all(
+                    bool(torch.isfinite(getattr(st.planes, f.name)[st.planes.valid]).all())
+                    for f in dataclasses.fields(st.planes))])
+
+
+def check_scan(got: dict, query: int, smi: str = "") -> None:
+    print(f"scan over {len(got['n_loop'])} keyframes in {got['areas']} areas: candidates "
+          f"{got['scan_idx'].tolist()} (valid {got['scan_ok'].tolist()}), {got['scan_ms']:.3f} ms; "
+          f"relocalise -> keyframe {got['reloc_kf']} with {got['reloc_matches']} matched planes, "
+          f"{got['reloc_ms']:.3f} ms {smi}; matches per keyframe, batched "
+          f"{got['n_batched'].tolist()}; valid planes per frame {got['valid_planes']}; frames "
+          f"with a non-finite valid plane {got['non_finite']}")
+    if got["non_finite"]:
+        raise AssertionError(f"frames {got['non_finite']} hold non-finite valid planes")
+    if not np.array_equal(got["n_batched"], got["n_loop"]):
+        raise AssertionError(f"the batched matcher's counts differ from a loop over the "
+                             f"unbatched one: {got['n_loop'].tolist()}")
+    if not got["scan_ok"].any():
+        raise AssertionError("the scan found no candidate in a map that holds the query's place")
+    if got["n_loop"][query] < got["n_loop"].max() - 2:
+        raise AssertionError(f"the query's own keyframe matches {got['n_loop'][query]} planes, "
+                             f"others up to {got['n_loop'].max()}")
+    # in the eightfold-symmetric room other frames match as many planes as
+    # the query's own; the winner is the newest of those with the most
+    if not got["reloc_success"] or got["reloc_kf"] != got["reloc_expect"]:
+        raise AssertionError(f"relocalised to keyframe {got['reloc_kf']}, the scan's results "
+                             f"give {got['reloc_expect']}")
+    if not np.array_equal(got["reloc_pose"], got["pose_expect"]):
+        raise AssertionError("the relocalisation's pose is not the scan's for that keyframe")
+
+
+def _phase_times(slam) -> list:
+    """Wrap the tracker's `_advance_head`: a list, filled as the tracker
+    runs, of one list per event of the wall ms of each phase it advanced
+    (synchronized)."""
+    advance, log = slam._advance_head, []
+
+    def timed():
+        if slam._pending[0][1] is None:  # an event's first advance
+            log.append([])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance()
+        torch.cuda.synchronize()
+        log[-1].append(1e3 * (time.perf_counter() - t0))
+
+    slam._advance_head = timed
+    return log
+
+
+def check_keyframe_phase(smi: str) -> None:
+    """Phase i: KeyframeSLAM at full size against the JAX golden."""
+    import tempfile
+
+    failed: list = []
+
+    def gate(check, *args, **kw):
+        """Run one gate; a failed one is reported at once and raised, with
+        every other failed gate of the phase, at the phase's end (so one
+        run shows them all)."""
+        try:
+            return check(*args, **kw)
+        except AssertionError as err:
+            print(f"GATE FAILED: {err}")
+            failed.append(str(err))
+
+    golden = dict(np.load(KEYFRAME_GOLDEN))
+    sub = lambda p: {k[len(p) + 1:]: v for k, v in golden.items() if k.startswith(p + "_")}  # noqa: E731
+    t0 = time.perf_counter()
+    cfg = synthetic.config()
+    builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg)
+    raws = loop_raws(LOOP_FRAMES)
+    gt = synthetic.loop_poses(LOOP_FRAMES)
+    print(f"keyframe SLAM set-up (calibration maps, {LOOP_FRAMES} loop captures): "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    cfg_sync = keyframe_config(cfg, False)
+
+    # the main path: the default (deferred events) tracker over the loop
+    asy_slam = KeyframeSLAM(builder)
+    _reset_counts()
+    asy = run_keyframe(asy_slam, raws, gt)
+    counts = _counts()
+    _require_launches(counts, "keyframe SLAM")
+    if counts["fused_pyr_down"] != 4 * counts["fused_gradients"]:
+        raise AssertionError(f"a pyramid is not 1 K1 + 4 K2 launches: {counts}")
+    gate(check_keyframe_run, asy, sub("loop_async"), "keyframe SLAM (deferred events)")
+    gate(check_closure_edges, asy, sub("lc_verify"), "keyframe SLAM (deferred events)")
+
+    syn_slam = KeyframeSLAM(builder, cfg_sync)
+    syn = run_keyframe(syn_slam, raws, gt)
+    gate(check_keyframe_run, syn, sub("loop_sync"), "keyframe SLAM (synchronous events)")
+    gate(check_closure_edges, syn, sub("lc_verify"), "keyframe SLAM (synchronous events)")
+    gate(check_async_vs_sync, asy, syn, len(asy_slam._pending))
+
+    # a second run after reset(): identical; and the times of a warm run
+    syn_slam.reset()
+    phases = _phase_times(syn_slam)
+    syn2 = run_keyframe(syn_slam, raws, gt)
+    gate(check_identical, syn, syn2, "synchronous run, again after reset()")
+    asy_slam.reset()
+    asy2 = run_keyframe(asy_slam, raws, gt)
+    same = all(np.array_equal(asy[k], asy2[k], equal_nan=True) for k in asy if k != "process_ms")
+    gate(check_keyframe_decisions, asy2, asy, "deferred run, again after reset()")
+    print(f"deferred run, again after reset(): {'identical' if same else 'the same decisions; '}"
+          f"{'' if same else 'poses differ (phase readiness is a race with the card)'}")
+
+    kf = asy2["keyframe"]
+    kf[0] = False  # the first frame only seeds the map
+    tracked = ~kf
+    tracked[0] = False
+    for name, run in (("deferred", asy2), ("synchronous", syn2)):
+        ms = run["process_ms"]
+        print(f"keyframe SLAM ({name} events): process median {statistics.median(ms[tracked]):.3f} "
+              f"ms per tracked frame, {statistics.median(ms[kf]):.3f} ms per keyframe frame "
+              f"(all {np.round(ms, 1).tolist()}), on {smi}")
+    four = [v for v in phases if len(v) == 4]
+    print(f"keyframe events (synchronous, {len(phases)} events): ms per phase of each event "
+          f"{[np.round(v, 1).tolist() for v in phases]}; ms per phase A-D, medians over the "
+          f"{len(four)} four-phase events "
+          f"{[round(statistics.median(c), 3) for c in zip(*four)] if four else []}; dispatch "
+          f"sites per event {syn_slam.kf_event_dispatches}, on {smi}")
+    print(f"keyframe SLAM stages (synchronous run):\n{syn_slam.timer.report()}")
+
+    # host syncs per frame (sync debug mode, a lower bound)
+    syn_slam.reset()
+    syncs = np.array([_count_syncs(lambda r=r: syn_slam.process(r)) for r in raws])
+    print(f"keyframe SLAM: host syncs per frame (sync debug mode, a lower bound) "
+          f"{syncs.tolist()}: median {int(np.median(syncs[tracked]))} per tracked frame, "
+          f"{int(np.median(syncs[kf]))} per keyframe frame (its event included)")
+
+    # kidnap
+    kraws = [RawRigFrame(rgb=rgb, depth_mm=d) for rgb, d in synthetic.kidnap_captures(
+        [(r.rgb, r.depth_mm) for r in raws])]
+    kid = run_kidnap(KeyframeSLAM(builder), kraws, synthetic.kidnap_poses(gt))
+    gate(check_kidnap, kid, sub("kidnap"))
+
+    # checkpoint / resume against the uninterrupted synchronous run
+    cut = LOOP_FRAMES // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        res = run_checkpoint(builder, cfg_sync, raws, cut, Path(tmp) / "slam_state.npz")
+        rcounts = _counts()
+    gate(check_checkpoint, res, syn, cut)
+    pyramids = LOOP_FRAMES + len(res["rebuilds"])
+    print(f"checkpoint: kernel launches {rcounts} over {LOOP_FRAMES} frames and "
+          f"{len(res['rebuilds'])} rebuilt pyramids")
+    if rcounts != {"fused_gradients": pyramids, "fused_pyr_down": 4 * pyramids}:
+        failed.append(f"{pyramids} pyramids are not {rcounts}")
+
+    # the solvers alone, and the scans at capacity 64
+    gate(check_solvers, solve_rings(builder.sensor.device), golden, f"on {smi}")
+    states = [syn_slam.make_state(r) for r in raws]
+    m = filled_map(cfg, states, gt, SCAN_KEYFRAMES, builder.sensor.device)
+    gate(check_scan, scan_filled_map(cfg, m, states, query=5), 5, f"on {smi}")
+    del m, states
+    print(f"keyframe SLAM: peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, on {smi}")
+
+    def profiled() -> None:
+        # a keyframe frame whose event optimizes (the last, if none does)
+        frames, opt = np.flatnonzero(syn2["keyframe"]), syn2["optimized"]
+        f = int(frames[np.argmax(opt)] if opt.any() else frames[-1])
+        slam = KeyframeSLAM(builder, cfg_sync)
+        for raw in raws[:f]:
+            slam.process(raw)
+        for what, raw in (("keyframe frame", raws[f]), ("next frame", raws[f + 1])):
+            wall, busy, ops, waits, d2h = _profile(lambda: slam.process(raw))
+            ev = slam.events[-1]
+            print(f"keyframe SLAM, one profiled {what} (frame {len(slam.events) - 1}, keyframe "
+                  f"{ev['keyframe']}, synchronous event: {ev.get('connections', 0)} connections, "
+                  f"{ev.get('loop_closures', 0)} closures, optimized {ev.get('optimized', False)}): "
+                  f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                  f"{1 - busy / wall:.3f}, device ops {ops}, host waits {waits}, "
+                  f"device-to-host copies {d2h}, on {smi}")
+
+    _DEFERRED.append(profiled)
+    if failed:
+        raise AssertionError(f"phase i: {len(failed)} gates failed: " + " | ".join(failed))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of the port.")
+    parser.add_argument("--phases", default="bcdefgi",
+                        help="the phases to run (a, the build and h always run); a partial "
+                             "run prints no result lines")
+    phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on the card")
     smi = subprocess.run(
@@ -1117,31 +1816,37 @@ def main() -> int:
     _build.load()
     print(f"kernels built from {_build.SRC_DIR} in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
-    k1 = check_k1(rng)
-    k2 = check_k2(rng)
-    t0 = time.perf_counter()
-    sl = check_slice()
-    print(f"phase d took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    setup = _synthetic_setup(
-        BATCH_FRAMES, batch_dense_config(synthetic.config()), reference_maps=True
-    )
-    torch.cuda.synchronize()
-    print(f"batch set-up (calibration maps, synthetic captures): "
-          f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    check_batch(*setup, smi)
-    print(f"phase e took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_targets(*setup)
-    print(f"phase f took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_odometry_phase(smi)
-    print(f"phase g took {time.perf_counter() - t0:.1f} s")
+    if "b" in phases:
+        k1 = check_k1(rng)
+    if "c" in phases:
+        k2 = check_k2(rng)
+    if "d" in phases:
+        t0 = time.perf_counter()
+        sl = check_slice()
+        print(f"phase d took {time.perf_counter() - t0:.1f} s")
+    if "e" in phases or "f" in phases:
+        t0 = time.perf_counter()
+        setup = _synthetic_setup(
+            BATCH_FRAMES, batch_dense_config(synthetic.config()), reference_maps=True
+        )
+        torch.cuda.synchronize()
+        print(f"batch set-up (calibration maps, synthetic captures): "
+              f"{time.perf_counter() - t0:.2f} s")
+    for phase, check in (("e", lambda: check_batch(*setup, smi)),
+                         ("f", lambda: check_targets(*setup)),
+                         ("g", lambda: check_odometry_phase(smi)),
+                         ("i", lambda: check_keyframe_phase(smi))):
+        if phase in phases:
+            t0 = time.perf_counter()
+            check()
+            print(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for job in _DEFERRED:
         job()
     print(f"phase h took {time.perf_counter() - t0:.1f} s")
+    if set("bcdefgi") - set(phases):
+        print(f"partial run (phases {phases}): no result lines")
+        return 0
 
     print(f"fast reciprocal of K1 against IEEE division over its whole range: "
           f"{k1['rcp_mismatches']} mismatches")

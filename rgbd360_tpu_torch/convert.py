@@ -18,6 +18,11 @@ other way, given the reference's module or class (this module imports
 nothing of the reference package).
 `plane_set_from_numpy` and `plane_set_to_numpy` carry a plane set (the
 reference's `PlaneSet` with numpy fields) across, both ways.
+`map_from_numpy` / `map_to_numpy` and `pose_graph_from_numpy` /
+`pose_graph_to_numpy` carry a keyframe map and a pose graph across leaf by
+leaf: the leaves are the reference's `jax.tree_util.tree_flatten` of its
+`Map360` / `PoseGraph` (the dataclasses' fields in order), as numpy arrays
+with bfloat16 widened to float32, as `Map360.save` writes them.
 """
 
 from __future__ import annotations
@@ -146,3 +151,29 @@ def plane_set_to_numpy(planes) -> dict[str, np.ndarray]:
     reference's `PlaneSet(**{k: jnp.asarray(v) ...})` takes it back)."""
     return {f.name: getattr(planes, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(planes)}
+
+
+def map_to_numpy(map360) -> list[np.ndarray]:
+    """The leaves of the port's `slam.map.Map360` as host numpy arrays, in
+    the reference's flattening order (bfloat16 widened to float32)."""
+    return map360.to_numpy()
+
+
+def map_from_numpy(leaves: Sequence[np.ndarray], template):
+    """The port's `Map360` from the reference map's leaves; `template` (a
+    port map, e.g. `Map360.empty(...)`) gives the dtypes and the device, the
+    leaves their own capacities."""
+    return type(template).from_numpy(leaves, template)
+
+
+def pose_graph_to_numpy(graph) -> list[np.ndarray]:
+    """The leaves of the port's `slam.graph.PoseGraph` as numpy arrays."""
+    return [getattr(graph, f.name).detach().cpu().numpy() for f in dataclasses.fields(graph)]
+
+
+def pose_graph_from_numpy(leaves: Sequence[np.ndarray], device=None):
+    """The port's `PoseGraph` from the reference graph's leaves (poses,
+    vmask, edges_ij, rel, info, emask)."""
+    from rgbd360_tpu_torch.slam.graph import PoseGraph
+
+    return PoseGraph(*(torch.from_numpy(np.array(a)).to(device) for a in leaves))

@@ -412,7 +412,10 @@ def merge_plane_sets(cat: PlaneSet, cfg: SegmentationConfig) -> PlaneSet:
     wgt = torch.where(valid, n_in, 0.0)
 
     def seg(vals):  # (..., k, c) -> (..., k_roots, c)
-        return roots_t @ vals
+        # an invalid member adds nothing, whatever its fields hold: a
+        # degenerate slot's `eigh` may come back non-finite on the card, and
+        # 0 * nan in the product would spread it to every merged plane
+        return roots_t @ torch.where(valid[..., None], vals, 0.0)
 
     wsum = seg(wgt[..., None])[..., 0]
     wsafe = torch.clamp(wsum, min=1e-6)

@@ -78,6 +78,13 @@ class AlignResult:
     ill_posed: torch.Tensor  # bool
 
 
+def pyramid_tail(pyr: FramePyramid, start: int) -> FramePyramid:
+    """The same pyramid without its `start` finest levels: lets a caller run
+    an aligner configured for fewer levels on coarser data (the keyframe
+    event's connection aligns start one level down)."""
+    return FramePyramid(**{f: getattr(pyr, f)[start:] for f in _CHANNELS})
+
+
 def seam_masks_per_level(seam_valid: torch.Tensor, levels: int) -> tuple:
     """The (H, W) seam mask subsampled to every pyramid level."""
     return tuple(

@@ -118,9 +118,115 @@ def captures(n_frames: int, subsample: int = 1) -> list[tuple[np.ndarray, np.nda
     return out
 
 
+def loop_poses(n_frames: int, radius: float = 0.8) -> np.ndarray:
+    """(n, 4, 4) ground-truth world_T_rig poses of a closed circle of
+    `radius` metres in the horizontal plane, heading tangent to the path;
+    the frame after the last closes back onto the first."""
+    return synth_trajectory_poses("loop", n_frames, radius=radius)
+
+
+def loop_captures(
+    n_frames: int, subsample: int = 1, frames=None, room_radius: float = ROOM_RADIUS
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """[(rgb, depth)] as `captures` gives them, of the octagon room from
+    the poses `loop_poses(n_frames)`: all of them, or only those at the
+    indices `frames` (a kidnapped rig skips part of the loop)."""
+    rt = construction_spec_rt()
+    poses = loop_poses(n_frames)
+    s = subsample
+    out = []
+    for i in range(n_frames) if frames is None else frames:
+        raw = synth_capture(i, seed=i, radius=room_radius, rt=rt, pose=poses[i], room="octagon")
+        out.append(
+            (
+                np.ascontiguousarray(raw.rgb[:, ::s, ::s]),
+                np.ascontiguousarray(raw.depth_mm[:, ::s, ::s]),
+            )
+        )
+    return out
+
+
+# A kidnapped rig: frames 0-9 of the 24-frame loop, one blind capture (the
+# rig covered while it is carried: no depth, black images), then frames
+# 18-21.  The blind capture is what makes the tracker declare itself lost:
+# in the eightfold-symmetric octagon room the bare teleport 9 -> 18 does
+# not (the reference's seed chain finds a motion-continuous alias whose
+# depth residual, 5.7-6.1, passes its lost gate of 8; see PERF.md).
+KIDNAP_LOOP_FRAMES = 24
+KIDNAP_ORDER = list(range(10)) + [None] + list(range(18, 22))
+
+
+def kidnap_captures(loop_caps, order=KIDNAP_ORDER) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The kidnapped rig's captures from those of the whole loop
+    (`loop_captures(KIDNAP_LOOP_FRAMES, ...)`); None in `order` is a blind
+    capture."""
+    blind = (np.zeros_like(loop_caps[0][0]), np.zeros_like(loop_caps[0][1]))
+    return [blind if i is None else loop_caps[i] for i in order]
+
+
+def kidnap_poses(loop_gt: np.ndarray, order=KIDNAP_ORDER) -> np.ndarray:
+    """Ground truth of the kidnapped rig's captures (a blind one keeps the
+    pose before it)."""
+    idx = [i if i is not None else order[n - 1] for n, i in enumerate(order)]
+    return np.asarray(loop_gt)[idx]
+
+
 def walk_seeds(offsets) -> np.ndarray:
     """(n, 4, 4) float32 poses translated by `offsets` metres along the
     walk (the rig's x axis): the seeds of the batched alignments."""
     seeds = np.tile(np.eye(4, dtype=np.float32), (len(offsets), 1, 1))
     seeds[:, 0, 3] = offsets
     return seeds
+
+
+def ring_graph(n_live: int, capacity: int, edge_capacity: int, seed: int = 0,
+               closures: int = 3, wrong: bool = True):
+    """A seeded pose graph for the solvers: `n_live` poses on a circle of
+    2 m radius, noisy odometry edges around it (1 cm / 0.01 rad), `closures`
+    accurate closures across the ring and (with `wrong`) one closure that
+    claims two distant vertices coincide, which a robust solve must switch
+    off; the vertex poses are dead-reckoned from the noisy odometry.
+    Returns (leaves, loop_mask, ground truth): the leaves are a PoseGraph's
+    fields in order (poses, vmask, edges_ij, rel, info, emask) as numpy
+    arrays padded to the capacities, for `convert.pose_graph_from_numpy`."""
+    rng = np.random.default_rng(seed)
+    gt = synth_trajectory_poses("loop", n_live, radius=2.0)
+
+    def twist_exp(xi):  # small-angle SE(3) exponential, float64
+        v, w = xi[:3], xi[3:]
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        a = np.sin(th) / th
+        b = (1 - np.cos(th)) / th**2
+        c = (th - np.sin(th)) / th**3
+        t = np.eye(4)
+        t[:3, :3] = np.eye(3) + a * k + b * k @ k
+        t[:3, 3] = (np.eye(3) + b * k + c * k @ k) @ v
+        return t
+
+    def measured(i, j, sigma):
+        return twist_exp(rng.normal(0, sigma, 6)) @ np.linalg.inv(gt[i]) @ gt[j]
+
+    edges, rels, lc = [], [], []
+    for i in range(n_live - 1):
+        edges.append((i, i + 1)), rels.append(measured(i, i + 1, 0.01)), lc.append(False)
+    for c in range(closures):
+        i, j = c, n_live - 1 - c
+        edges.append((i, j)), rels.append(measured(i, j, 0.002)), lc.append(True)
+    if wrong:
+        edges.append((1, n_live // 2)), rels.append(np.eye(4)), lc.append(True)
+    poses = np.tile(np.eye(4), (capacity, 1, 1))
+    for i in range(n_live - 1):
+        poses[i + 1] = poses[i] @ rels[i]
+    e = len(edges)
+    edges_ij = np.full((edge_capacity, 2), -1, np.int32)
+    edges_ij[:e] = edges
+    rel = np.tile(np.eye(4), (edge_capacity, 1, 1))
+    rel[:e] = rels
+    info = np.tile(np.eye(6), (edge_capacity, 1, 1))
+    info[:e] = np.diag([400.0, 400, 400, 900, 900, 900]) * rng.uniform(0.8, 1.2, (e, 1, 1))
+    loop_mask = np.zeros(edge_capacity, bool)
+    loop_mask[:e] = lc
+    leaves = [poses.astype(np.float32), np.arange(capacity) < n_live, edges_ij,
+              rel.astype(np.float32), info.astype(np.float32), np.arange(edge_capacity) < e]
+    return leaves, loop_mask, gt

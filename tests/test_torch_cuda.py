@@ -174,3 +174,61 @@ def test_fused_level_down_kernel_matches_plain(cuda, shape, misaligned):
     assert torch.equal(g2, rg) and torch.equal(d2, rd)
     for circular, fn in ((False, HK.fused_pyr_down), (True, HK.fused_pyr_down_circular)):
         assert torch.equal(fn(g), HK.fused_pyr_down_plain(g, circular))
+
+
+@pytest.mark.cuda
+def test_kf_pyramid_without_seam_masks_matches_plain(cuda):
+    """A keyframe pyramid rebuilt from the map's bfloat16 payload goes
+    through K1 and K2 WITHOUT seam masks (1 + 4 launches) and equals the
+    kernels' plain versions bit for bit."""
+    import dataclasses
+
+    from rgbd360_tpu_torch import synthetic
+    from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
+    from rgbd360_tpu_torch.slam.map import Map360
+
+    cfg = synthetic.config()
+    rng = np.random.default_rng(3)
+    h, w = cfg.sphere.height, cfg.sphere.width
+    m = Map360.empty(dataclasses.replace(cfg.map, max_keyframes=2, max_edges=4), h, w,
+                     cfg.seg.max_planes, cfg.seg.hull_dirs, "cuda")
+    m.gray[1] = _plateau_image(rng, (h, w)).cuda().mul(60).to(torch.bfloat16)
+    depth = torch.from_numpy(rng.uniform(0.0, 22.0, (h, w)).astype(np.float32))
+    m.depth[1] = torch.where(depth < 1.0, 0.0, depth).cuda().to(torch.bfloat16)
+    closer = LoopCloser(cfg)
+    k1, k2 = HK.fused_gradients.launches, HK.fused_pyr_down.launches
+    pyr = closer.kf_pyramid(m, 1)
+    assert HK.fused_gradients.launches == k1 + 1 and HK.fused_pyr_down.launches == k2 + 4
+    saved = HK.fused_gradients_levels, HK.fused_level_down
+    HK.fused_gradients_levels, HK.fused_level_down = (
+        HK.fused_gradients_levels_plain, HK.fused_level_down_plain)
+    try:
+        plain = closer.kf_pyramid(m, 1)
+    finally:
+        HK.fused_gradients_levels, HK.fused_level_down = saved
+    assert HK.fused_gradients.launches == k1 + 1  # the plain run launched nothing
+    for f in dataclasses.fields(pyr):
+        for a, b in zip(getattr(pyr, f.name), getattr(plain, f.name)):
+            assert torch.equal(a, b), f.name
+    # no seam mask, but the uniform seam columns are zeroed
+    assert (pyr.gray_gx[0][:, :: w // 8] == 0).all() and pyr.gray_gx[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcg", [False, True], ids=["dense", "pcg"])
+def test_pose_graph_solve_is_deterministic_on_the_card(cuda, pcg):
+    """A second solve of the same graph is bit-identical: the per-edge
+    blocks are assembled by matrix products, not by atomic scatter-adds."""
+    from rgbd360_tpu_torch import convert, synthetic
+    from rgbd360_tpu_torch.slam import graph as G
+
+    leaves, loop_mask, _ = synthetic.ring_graph(48, 64, 512)
+    g = convert.pose_graph_from_numpy(leaves, "cuda")
+    lm = torch.from_numpy(loop_mask).cuda()
+    solve = G.optimize_pose_graph_pcg if pcg else G.optimize_pose_graph
+    first, second = solve(g, 10, loop_mask=lm), solve(g, 10, loop_mask=lm)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert first[2] == second[2] and float(first[1]) < 0.01 * float(G.graph_chi2(g))
+    h1 = G._graph_normal_equations(g.poses, g, (lm, 10.0))
+    h2 = G._graph_normal_equations(g.poses, g, (lm, 10.0))
+    assert all(torch.equal(a, b) for a, b in zip(h1, h2))

@@ -31,6 +31,25 @@ only the files in `rgbd360_tpu_torch/data/`:
   `seed_counts`), and per frame the plane set (`planes_*`).  The seeds and
   the PbMap result are recorded by wrapping the tracker's `aligner.align`
   and `plane_reg.register` here; the reference package is not edited.
+* `keyframe_golden.npz`, the reference `KeyframeSLAM` (default config, map
+  capacity 64 / 512) over a closed loop of LOOP_FRAMES raw captures in the
+  octagon room (`synthetic.loop_captures`), each through `process(raw)`,
+  then `flush()`: once with the deferred keyframe events (`loop_async_*`,
+  the default) and once with synchronous ones (`loop_sync_*`); per run the
+  per-frame flags, the sorted edge list with the edges' measured poses, the
+  areas, both trajectories, the final chi2 and the per-keyframe event
+  counts (`keyframe_record`).  The
+  kidnap run (`kidnap_*`): `synthetic.kidnap_captures` of the same loop
+  (frames 0-9, a blind capture, frames 18-21), with the frames at which the
+  yaw rescue ran (recorded by wrapping the tracker's `aligner.coarse_align`;
+  the reference package is not edited).  The solvers alone (`ring64_*`,
+  `ring256_*`): `synthetic.ring_graph` at capacity 64 through
+  `optimize_pose_graph` and at 256 through `optimize_pose_graph_pcg`, both
+  with DCS.  The loop closures' verifications (`lc_verify_*`): the
+  synchronous run's accepted closures, each verified again from seeds moved
+  by micrometres (`jitters()[:LC_VERIFY_JITTERS]`; the verification is the
+  salient solve, see `batch_golden.npz`), their inputs recorded by wrapping
+  the tracker's `loop_closer.verify_dispatch`.
 * `reference_stitch_maps.npz`, the reference builder's stitch maps, which
   the batch phases load into the port's builder
   (`convert.stitch_maps_state_dict`): the two packages' maps differ on the
@@ -38,7 +57,8 @@ only the files in `rgbd360_tpu_torch/data/`:
   that into centimetres, so the batch goldens are compared on the same
   maps.
 
-    JAX_PLATFORMS=cpu python tools/torch_port_golden.py [--batch-only | --odometry-only]
+    JAX_PLATFORMS=cpu python tools/torch_port_golden.py \
+        [--batch-only | --odometry-only | --keyframe-only]
 """
 
 from __future__ import annotations
@@ -58,13 +78,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from rgbd360_tpu.core.frame import FrameBuilder, RigFrame  # noqa: E402
+from rgbd360_tpu.core.frame import RigFrame  # noqa: E402
 from rgbd360_tpu.ops import se3  # noqa: E402
 from rgbd360_tpu.ops import stitch as stitch_ops  # noqa: E402
 from rgbd360_tpu.io.bin_format import RawRigFrame  # noqa: E402
 from rgbd360_tpu.registration import dense as D  # noqa: E402
 from rgbd360_tpu.slam.odometry import FrameToFrameOdometry  # noqa: E402
-from rgbd360_tpu_torch import convert, synthetic  # noqa: E402
+from rgbd360_tpu_torch import synthetic  # noqa: E402
 from _reference import reference_builder  # noqa: E402
 
 DATA = ROOT / "rgbd360_tpu_torch" / "data"
@@ -230,6 +250,200 @@ def odometry_jax(n_frames: int = 6, subsample: int = 1, pyramid_levels: int = 5,
     return out
 
 
+LOOP_FRAMES = synthetic.KIDNAP_LOOP_FRAMES  # the kidnap run shares the loop's captures
+
+
+def keyframe_record(slam, gt=None) -> dict:
+    """What a finished `KeyframeSLAM` run is compared on (call after
+    `flush()`): the keys of `chip_smoke.keyframe_record`."""
+    from rgbd360_tpu.slam.graph import graph_chi2
+
+    ev = slam.events
+    n_kf, n_e = int(slam.map.n_kf), int(slam.map.n_edges)
+    edges = np.concatenate(
+        [np.asarray(slam.map.graph.edges_ij)[:n_e],
+         np.asarray(slam.map.edge_is_lc)[:n_e, None].astype(np.int32)], axis=1)
+    kf_ev = [e for e in ev if e["keyframe"]]
+    order = np.lexsort(edges.T[::-1])  # stable: equal (i, j, is_lc) keep their order
+    out = {
+        "keyframe": np.array([e["keyframe"] for e in ev]),
+        "lost": np.array([bool(e.get("lost", False)) for e in ev]),
+        "relocalized": np.array([bool(e["relocalized"]) for e in ev]),
+        "edges": edges[order],
+        "edge_rel": np.asarray(slam.map.graph.rel)[:n_e][order],
+        "n_loop_closures": np.int64(slam.n_loop_closures),
+        "area": np.asarray(slam.map.area)[:n_kf],
+        "n_areas": np.int64(int(slam.map.n_areas)),
+        "trajectory": np.stack(slam.trajectory).astype(np.float32),
+        "optimized_trajectory": slam.optimized_trajectory().astype(np.float32),
+        "opt_poses": np.asarray(slam.map.opt_poses)[:n_kf],
+        "chi2": np.float32(graph_chi2(slam.map.graph)),
+        "fused_track": np.int64(slam.timer.counts.get("fused_track", 0)),
+        "connections": np.array([e.get("connections", 0) for e in kf_ev]),
+        "loop_closures": np.array([e.get("loop_closures", 0) for e in kf_ev]),
+        "optimized": np.array([bool(e.get("optimized", False)) for e in kf_ev]),
+        "av_depth_residual": np.array([e.get("av_depth_residual", np.nan) for e in ev]),
+    }
+    if gt is not None:
+        out["gt"] = np.asarray(gt, np.float32)
+    return out
+
+
+LC_VERIFY_JITTERS = 53  # unjittered, +-JITTER_M along each axis, 40 random directions
+
+
+def record_lc_verifies(slam, calls: list) -> None:
+    """Keep the inputs of every dense loop-closure verification of a run
+    with SYNCHRONOUS events by wrapping the tracker's
+    `loop_closer.verify_dispatch`: `calls` receives, as the tracker runs,
+    (query keyframe, query pyramid, candidates, their seeds, their
+    pyramids)."""
+    verify = slam.loop_closer.verify_dispatch
+
+    def record(map360, q_pyr, cand, cand_pose, pyr_cache=None):
+        res_b, cand_pyrs = verify(map360, q_pyr, cand, cand_pose, pyr_cache)
+        # synchronous events: the event's keyframe is the current one
+        calls.append((slam.current_kf, q_pyr, list(cand), dict(cand_pose), cand_pyrs))
+        return res_b, cand_pyrs
+
+    slam.loop_closer.verify_dispatch = record
+
+
+def lc_verify_branches(slam, calls: list, n_jitters: int = LC_VERIFY_JITTERS) -> dict:
+    """The solves behind the run's accepted closures again, from seeds moved
+    by `jitters()[:n_jitters]`: the verification as `verify_dispatch` ran it
+    (the whole candidate batch) or, where that failed the gates and the
+    heading rescue was accepted, `rescue_fused_dispatch`.
+    `lc_verify_edges` (n, 2) the closures (keyframe from, to),
+    `lc_verify_branch_poses` (P, n, 4, 4) their poses per jitter (branch 0,
+    unjittered, IS the edge's pose), `lc_verify_rescued` (n,) which of the
+    two solves gave it."""
+    closer = slam.loop_closer
+    n_e = int(slam.map.n_edges)
+    ij = np.asarray(slam.map.graph.edges_ij)[:n_e]
+    rel = np.asarray(slam.map.graph.rel)[:n_e]
+    closures = {(int(i), int(j)): r
+                for (i, j), r, lc in zip(ij, rel, np.asarray(slam.map.edge_is_lc)[:n_e]) if lc}
+    edges, poses, rescued = [], [], []
+    for k, q_pyr, cand, cand_pose, cand_pyrs in calls:
+        seeds = np.stack([np.asarray(cand_pose[int(kf)]) for kf in cand])
+        verified = None
+        for n, kf in enumerate(cand):
+            edge = (int(kf), int(k))
+            if edge not in closures:
+                continue
+            if verified is None:
+                verified = np.stack([
+                    np.asarray(D.batch_align_targets(
+                        closer._aligner, q_pyr, cand_pyrs, list(_jittered(seeds, j))).pose)
+                    for j in jitters()[:n_jitters]
+                ])
+            branch = verified[:, n]
+            by_rescue = not np.array_equal(branch[0], closures[edge])
+            if by_rescue:
+                branch = np.stack([
+                    np.asarray(closer.rescue_fused_dispatch(
+                        q_pyr, cand_pyrs[n], _jittered(seeds[n : n + 1], j)[0]).pose)
+                    for j in jitters()[:n_jitters]
+                ])
+            if not np.array_equal(branch[0], closures[edge]):
+                raise AssertionError(f"closure {edge}: neither solve reproduces its edge")
+            edges.append(edge)
+            poses.append(branch)
+            rescued.append(by_rescue)
+    return {"lc_verify_edges": np.asarray(edges, np.int32).reshape(-1, 2),
+            "lc_verify_branch_poses": np.stack(poses, axis=1).astype(np.float32)
+            if poses else np.zeros((n_jitters, 0, 4, 4), np.float32),
+            "lc_verify_rescued": np.asarray(rescued, bool)}
+
+
+def _keyframe_config(subsample, pyramid_levels, config, async_events):
+    cfg = config or synthetic.config(subsample, pyramid_levels)
+    return cfg.replace(kf=dataclasses.replace(cfg.kf, async_kf_events=async_events))
+
+
+def keyframe_run_jax(caps, async_events: bool = True, subsample: int = 1,
+                     pyramid_levels: int = 5, config=None, gt=None, hook=None):
+    """The reference `KeyframeSLAM` over the captures `caps`, each through
+    `process`, then `flush()`: (tracker, record).  `hook(tracker)` runs
+    before the first frame (to wrap methods)."""
+    from rgbd360_tpu.slam.odometry import KeyframeSLAM
+
+    cfg = _keyframe_config(subsample, pyramid_levels, config, async_events)
+    slam = KeyframeSLAM(reference_builder(cfg))
+    if hook is not None:
+        hook(slam)
+    for rgb, d in caps:
+        slam.process(RawRigFrame(rgb=rgb, depth_mm=d))
+    slam.flush()
+    return slam, keyframe_record(slam, gt)
+
+
+def solvers_jax() -> dict:
+    """The reference's solvers on `synthetic.ring_graph` at the capacities a
+    long run reaches: dense LM at 64 keyframes, LM-PCG at 256, with DCS."""
+    from rgbd360_tpu.slam import graph as G
+
+    out = {}
+    for name, n_live, cap, e_cap, solve in (
+        ("ring64", 48, 64, 512, G.optimize_pose_graph),
+        ("ring256", 200, 256, 512, G.optimize_pose_graph_pcg),
+    ):
+        leaves, loop_mask, _ = synthetic.ring_graph(n_live, cap, e_cap)
+        g = G.PoseGraph(*(jnp.asarray(a) for a in leaves))
+        lm = jnp.asarray(loop_mask)
+        poses, chi2, iters = solve(g, 10, loop_mask=lm)
+        out.update({
+            f"{name}_poses": np.asarray(poses), f"{name}_chi2": np.float32(chi2),
+            f"{name}_iters": np.int64(iters),
+            f"{name}_switches": np.asarray(G.loop_closure_switches(g, poses, lm)),
+            f"{name}_chi2_start": np.float32(G.graph_chi2(g)),
+        })
+    return out
+
+
+def kidnap_run_jax(caps, subsample: int = 1, pyramid_levels: int = 5, config=None,
+                   gt=None, async_events: bool = True) -> dict:
+    """The reference tracker over a kidnapped rig's captures: the record,
+    and `coarse_frames`, the frames at which the yaw rescue ran."""
+    rescued = []
+
+    def hook(slam):
+        coarse = slam.aligner.coarse_align
+
+        def record_coarse(*a, **kw):
+            rescued.append(len(slam.events))
+            return coarse(*a, **kw)
+
+        slam.aligner.coarse_align = record_coarse
+
+    _, rec = keyframe_run_jax(caps, async_events, subsample, pyramid_levels, config, gt, hook)
+    rec["coarse_frames"] = np.asarray(rescued, np.int64)
+    return rec
+
+
+def keyframe_jax(subsample: int = 1, pyramid_levels: int = 5, config=None,
+                 n_frames: int = LOOP_FRAMES, solvers: bool = True) -> dict:
+    """The reference's run of the smoke's Keyframe SLAM phase (see the
+    module doc)."""
+    gt = synthetic.loop_poses(n_frames)
+    caps = synthetic.loop_captures(n_frames, subsample)
+    out = {}
+    for mode, name in ((True, "loop_async"), (False, "loop_sync")):
+        calls: list = []
+        hook = None if mode else (lambda slam: record_lc_verifies(slam, calls))
+        slam, rec = keyframe_run_jax(caps, mode, subsample, pyramid_levels, config, gt, hook)
+        out.update({f"{name}_{k}": v for k, v in rec.items()})
+        if not mode:
+            out.update(lc_verify_branches(slam, calls))
+    rec = kidnap_run_jax(synthetic.kidnap_captures(caps), subsample, pyramid_levels, config,
+                         synthetic.kidnap_poses(gt))
+    out.update({f"kidnap_{k}": v for k, v in rec.items()})
+    if solvers:
+        out.update(solvers_jax())
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=6, help="frames of the slice")
@@ -239,8 +453,36 @@ def main(argv=None) -> None:
                       help="write only batch_golden.npz and the stitch maps")
     only.add_argument("--odometry-only", action="store_true",
                       help="write only odometry_golden.npz")
+    only.add_argument("--keyframe-only", action="store_true",
+                      help="write only keyframe_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if not (args.batch_only or args.odometry_only):
+        res = keyframe_jax()
+        np.savez_compressed(out_dir / "keyframe_golden.npz", **res)
+        print(f"wrote {out_dir / 'keyframe_golden.npz'}")
+        for name in ("loop_async", "loop_sync", "kidnap"):
+            print(f"{name}: keyframes at frames "
+                  f"{np.flatnonzero(res[f'{name}_keyframe']).tolist()}, lost "
+                  f"{np.flatnonzero(res[f'{name}_lost']).tolist()}, relocalized "
+                  f"{np.flatnonzero(res[f'{name}_relocalized']).tolist()}, edges (i, j, lc) "
+                  f"{res[f'{name}_edges'].tolist()}, closures {int(res[f'{name}_n_loop_closures'])}, "
+                  f"areas {res[f'{name}_area'].tolist()}, connections "
+                  f"{res[f'{name}_connections'].tolist()}, optimized "
+                  f"{res[f'{name}_optimized'].tolist()}, chi2 {float(res[f'{name}_chi2']):.4f}")
+        print("kidnap: coarse_align (yaw rescue) called at frames",
+              res["kidnap_coarse_frames"].tolist())
+        branch = res["lc_verify_branch_poses"]
+        print("closures solved again from", len(branch), "jittered seeds:",
+              res["lc_verify_edges"].tolist(), "accepted through the rescue",
+              res["lc_verify_rescued"].tolist(), "spread (m)",
+              np.linalg.norm(branch[:, :, :3, 3] - branch[:1, :, :3, 3], axis=2).max(axis=0).tolist())
+        print("solvers: ring64 chi2", float(res["ring64_chi2_start"]), "->",
+              float(res["ring64_chi2"]), "in", int(res["ring64_iters"]), "LM iterations; ring256",
+              float(res["ring256_chi2_start"]), "->", float(res["ring256_chi2"]), "in",
+              int(res["ring256_iters"]))
+    if args.keyframe_only:
+        return
     if not args.batch_only:
         res = odometry_jax(args.frames)
         np.savez(out_dir / "odometry_golden.npz", **res)

@@ -1,20 +1,30 @@
-"""Synthetic rig captures (numpy twin of the capture synthesis in
-`rgbd360_tpu/apps/grabber.py`).
+"""Capture serialization tool (twin of `rgbd360_tpu/apps/grabber.py`,
+reference `Grabber/RGBD360_Grabber.cpp`).
 
 `synth_capture` renders one 8-sensor RGB-D capture of a textured virtual
 room (a cylinder, or an octagonal prism with ten real planes) from a rig
 pose, and `synth_trajectory_poses` gives the ground-truth poses of a walk
 or a closed loop.  Both are copies of the reference's functions and give
-the same bytes from the same seed.  The command-line tool that writes
-capture files is not ported yet.
+the same bytes from the same seed.  `main` writes such captures as
+`sphere_images_*.bin` files (`synth`, with `gt_poses.txt`), or re-serializes
+and verifies an existing capture directory (`repack`).  It runs on the host
+only (numpy), so it takes no device.
+
+Usage:
+    python -m rgbd360_tpu_torch.apps.grabber repack  SRC_DIR DST_DIR
+    python -m rgbd360_tpu_torch.apps.grabber synth   DST_DIR --frames 5 [--seed 0]
+        [--trajectory loop --path-radius 0.8]   # closed loop + gt_poses.txt
 """
 
 from __future__ import annotations
 
+import argparse
+from pathlib import Path
+
 import numpy as np
 
 from rgbd360_tpu_torch.calibration.spec import construction_spec_rt
-from rgbd360_tpu_torch.core.frame import RawRigFrame
+from rgbd360_tpu_torch.io.bin_format import RawRigFrame, read_rig_frame, write_rig_frame
 
 
 def _octagon_hit(o: np.ndarray, d: np.ndarray, inradius: float,
@@ -138,3 +148,67 @@ def synth_trajectory_poses(
     poses[:, 2, 1] = s
     poses[:, 2, 2] = c
     return poses
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pr = sub.add_parser("repack")
+    pr.add_argument("src")
+    pr.add_argument("dst")
+    ps = sub.add_parser("synth")
+    ps.add_argument("dst")
+    ps.add_argument("--frames", type=int, default=5)
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--calib", default=None,
+                    help="calibration root; when given, synthesize with its "
+                    "extrinsics so the frames stitch consistently")
+    ps.add_argument("--trajectory", choices=["walk", "loop"], default="walk",
+                    help="walk: straight line along the room axis; loop: a "
+                    "closed circle in the horizontal plane with tangent "
+                    "heading, returning to the start (exercises loop closure)")
+    ps.add_argument("--path-radius", type=float, default=0.8,
+                    help="loop trajectory radius in metres")
+    ps.add_argument("--step", type=float, default=0.1,
+                    help="walk step per frame in metres")
+    ps.add_argument("--room", choices=["cylinder", "octagon"], default="cylinder",
+                    help="octagon: octagonal prism with floor/ceiling — ten "
+                    "real planes, enabling PbMap matching and plane-gated "
+                    "loop closure on the synthetic data")
+    args = p.parse_args(argv)
+
+    dst = Path(args.dst)
+    dst.mkdir(parents=True, exist_ok=True)
+    if args.cmd == "repack":
+        from rgbd360_tpu_torch.io.dataset import SequenceDataset
+
+        ds = SequenceDataset(args.src)
+        for idx, raw in zip(ds.indices, ds):
+            out = dst / f"sphere_images_{idx}.bin"
+            write_rig_frame(out, raw)
+            back = read_rig_frame(out)
+            if not (np.array_equal(back.rgb, raw.rgb) and np.array_equal(back.depth_mm, raw.depth_mm)):
+                raise RuntimeError(f"{out}: the written capture does not read back equal")
+            print(f"repacked {out} ({out.stat().st_size} B, verified)")
+        return
+    rt = None
+    if args.calib:
+        from rgbd360_tpu_torch.io.calib import load_extrinsics
+
+        rt = load_extrinsics(Path(args.calib) / "Extrinsics").astype(np.float64)
+    poses = synth_trajectory_poses(
+        args.trajectory, args.frames, step=args.step, radius=args.path_radius
+    )
+    for i in range(args.frames):
+        raw = synth_capture(
+            i, args.seed, step=args.step, rt=rt, pose=poses[i], room=args.room
+        )
+        out = dst / f"sphere_images_{i + 1}.bin"
+        write_rig_frame(out, raw)
+        print(f"wrote {out}")
+    np.savetxt(dst / "gt_poses.txt", poses.reshape(args.frames, 16), fmt="%.9f")
+    print(f"wrote ground-truth poses to {dst / 'gt_poses.txt'}")
+
+
+if __name__ == "__main__":
+    main()

@@ -177,3 +177,22 @@ def pose_graph_from_numpy(leaves: Sequence[np.ndarray], device=None):
     from rgbd360_tpu_torch.slam.graph import PoseGraph
 
     return PoseGraph(*(torch.from_numpy(np.array(a)).to(device) for a in leaves))
+
+
+def plane_ba_problem_to_numpy(prob) -> list[np.ndarray]:
+    """The leaves of the port's `slam.plane_ba.PlaneBAProblem` as numpy
+    arrays, in the reference's order (poses, planes, obs_kf, obs_pl, obs,
+    w); the indices as int32, the reference's dtype."""
+    out = [getattr(prob, f.name).detach().cpu().numpy() for f in dataclasses.fields(prob)]
+    out[2], out[3] = out[2].astype(np.int32), out[3].astype(np.int32)
+    return out
+
+
+def plane_ba_problem_from_numpy(leaves: Sequence[np.ndarray], device=None):
+    """The port's `PlaneBAProblem` from the reference problem's leaves
+    (poses, planes, obs_kf, obs_pl, obs, w); the indices become int64."""
+    from rgbd360_tpu_torch.slam.plane_ba import PlaneBAProblem
+
+    t = [torch.from_numpy(np.array(a)).to(device) for a in leaves]
+    t[2], t[3] = t[2].long(), t[3].long()
+    return PlaneBAProblem(*t)

@@ -24,6 +24,7 @@ from torch import nn
 
 from rgbd360_tpu_torch import resolve_device
 from rgbd360_tpu_torch.config import FrameworkConfig, default_config
+from rgbd360_tpu_torch.io.bin_format import RawRigFrame  # noqa: F401  (re-exported)
 from rgbd360_tpu_torch.io.calib import Calibration
 from rgbd360_tpu_torch.ops import camera, pyramid as pyr_ops, segmentation as seg_ops
 from rgbd360_tpu_torch.ops import stitch as stitch_ops, undistort as undistort_ops
@@ -31,21 +32,6 @@ from rgbd360_tpu_torch.ops.bilateral import bilateral_depth
 from rgbd360_tpu_torch.registration import dense as dense_ops
 
 _MAP_KEYS = ("sensor", "u", "v", "scale", "valid")
-
-
-@dataclass
-class RawRigFrame:
-    """One raw rig capture on the host, as a capture file holds it (the
-    fields of the reference's `io.bin_format.RawRigFrame`, which
-    `RigFrame.from_raw` also accepts).
-
-    rgb:      (S, H, W, 3) uint8 BGR.
-    depth_mm: (S, H, W) uint16 millimetres, 0 = invalid.
-    """
-
-    rgb: np.ndarray
-    depth_mm: np.ndarray
-    timestamp: int = 0
 
 
 @dataclass
@@ -153,7 +139,10 @@ class FrameBuilder(nn.Module):
         self.config = config or default_config()
         self.downsample_cloud = downsample_cloud
         if self.config.sphere.parallax_refine:
-            raise NotImplementedError("the parallax-refined stitch is not ported yet")
+            raise NotImplementedError(
+                "the parallax-refined stitch (sphere.parallax_refine, the apps' "
+                "--parallax-refine) is not ported yet (ROADMAP section 1.3)"
+            )
         rig, sph = self.config.rig, self.config.sphere
         rt = torch.as_tensor(calib.rt, dtype=torch.float32)
         rt_inv = torch.as_tensor(calib.rt_inv, dtype=torch.float32)

@@ -230,6 +230,21 @@ def _compat_masks(xyz: torch.Tensor, valid: torch.Tensor, cfg: SegmentationConfi
     return p, compat_r, compat_c
 
 
+def _slot_eigh(cov: torch.Tensor, count: torch.Tensor):
+    """`eigh` of the slots' 3x3 scatter matrices (ascending), defined where
+    the solver is not: a slot with no member (count 0, an all-zero matrix:
+    the padding of a sensor with fewer segments than slots) gets
+    eigenvalues 0 and the identity's eigenvectors, which LAPACK returns
+    for the reference; so does any slot whose decomposition comes back
+    non-finite.  Every field of a padded slot is then finite, as in the
+    reference."""
+    eigval, eigvec = torch.linalg.eigh(cov)
+    bad = (count < 1) | ~torch.isfinite(eigvec).all(dim=(-2, -1)) | ~torch.isfinite(eigval).all(-1)
+    eye = torch.eye(3, dtype=eigvec.dtype, device=eigvec.device)
+    return (torch.where(bad[..., None], 0.0, eigval),
+            torch.where(bad[..., None, None], eye, eigvec))
+
+
 def segment_planes_sensor(
     xyz: torch.Tensor,
     rgb: torch.Tensor,
@@ -279,7 +294,7 @@ def segment_planes_sensor(
     centroid = sp / cnt[..., None]
     cov = spp / cnt[..., None, None] - centroid[..., :, None] * centroid[..., None, :]
 
-    eigval, eigvec = torch.linalg.eigh(cov)  # ascending
+    eigval, eigvec = _slot_eigh(cov, s1)  # ascending
     normal = eigvec[..., 0]
     flip = torch.sum(normal * centroid, dim=-1) > 0
     normal = torch.where(flip[..., None], -normal, normal)

@@ -196,6 +196,27 @@ class TrackerBase:
         or exporting; applies any still-deferred keyframe-event work."""
         self._drain_pending()
 
+    def _apply_partition(self, sso_f) -> list[int]:
+        """The periodic topological partition of a keyframe event, on the
+        SSO snapshot `sso_f` (on the host) the event fetched; returns the
+        live keyframes' areas.  Keyframes promoted after the snapshot was
+        taken may lie beyond it (a promotion at a full map grows the map
+        under the event): only the `min(n_kf, len(sso_f))` keyframes it
+        covers are partitioned, and every later keyframe keeps its current
+        area."""
+        n_kf = self._n_kf_host
+        n_cov = min(n_kf, sso_f.shape[0])
+        area, n_areas = partition_map(
+            self.map, self.config.map.sso_partition_threshold, sso=sso_f, n_kf=n_cov
+        )
+        if n_cov < n_kf:
+            later = self.map.area[n_cov:n_kf].cpu().numpy()
+            area[n_cov:n_kf] = later
+            n_areas = max(n_areas, int(later.max()) + 1)
+        self.map.area.copy_(torch.from_numpy(area))
+        self.map.n_areas.fill_(n_areas)
+        return [int(a) for a in area[:n_kf]]
+
     def make_state(self, raw) -> FrameState:
         """Per-frame tracking state: build + pyramid + segmentation
         (`FrameBuilder.build_full`).  A tracker handed a dense config other
@@ -1124,13 +1145,7 @@ class KeyframeSLAM(TrackerBase):
         elif partition_due:
             sso_f = (yield (self.map.sso.clone(),))[0]
         if partition_due:
-            area, n_areas = partition_map(
-                self.map, self.config.map.sso_partition_threshold,
-                sso=sso_f, n_kf=self._n_kf_host,
-            )
-            self.map.area.copy_(torch.from_numpy(area))
-            self.map.n_areas.fill_(n_areas)
-            self._area_host = [int(a) for a in area[: self._n_kf_host]]
+            self._area_host = self._apply_partition(sso_f)
         # the generator body always runs under _advance_head with its own
         # counter swapped in, so this reads the event's exact dispatch count
         ev["kf_dispatches"] = self._cur_counter[0]

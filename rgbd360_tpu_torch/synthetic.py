@@ -230,3 +230,64 @@ def ring_graph(n_live: int, capacity: int, edge_capacity: int, seed: int = 0,
     leaves = [poses.astype(np.float32), np.arange(capacity) < n_live, edges_ij,
               rel.astype(np.float32), info.astype(np.float32), np.arange(edge_capacity) < e]
     return leaves, loop_mask, gt
+
+
+def write_calibration(root, rig: RigConfig) -> None:
+    """A calibration directory for the apps' `--calib ROOT --no-intrinsics`:
+    `Extrinsics/Rt_0{s}.txt`, the construction-spec extrinsics of
+    `calibration(rig)` as 4x4 text (the rig's intrinsics come from the
+    rig's configuration; no CLAMS model)."""
+    from pathlib import Path
+
+    ext = Path(root) / "Extrinsics"
+    ext.mkdir(parents=True, exist_ok=True)
+    for s, rt in enumerate(calibration(rig).rt, start=1):
+        np.savetxt(ext / f"Rt_0{s}.txt", rt.astype(np.float64), fmt="%.9g")
+
+
+def write_captures(root, caps, gt=None) -> None:
+    """A capture directory the apps read: `sphere_images_{i+1}.bin` per
+    (rgb, depth) of `caps` (the grabber's numbering), and `gt_poses.txt`
+    (N x 16 rows) when ground-truth poses `gt` are given."""
+    from pathlib import Path
+
+    from rgbd360_tpu_torch.io.bin_format import RawRigFrame, write_rig_frame
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for i, (rgb, depth) in enumerate(caps):
+        write_rig_frame(root / f"sphere_images_{i + 1}.bin",
+                        RawRigFrame(rgb=rgb, depth_mm=depth, timestamp=1000000 + i))
+    if gt is not None:
+        np.savetxt(root / "gt_poses.txt", np.asarray(gt).reshape(len(gt), 16), fmt="%.9f")
+
+
+APPS_WALK_FRAMES = 6  # the odometry app's walk (the odometry phase's)
+
+
+def write_app_inputs(root, subsample: int = 1, loop_frames: int = KIDNAP_LOOP_FRAMES,
+                     walk_frames: int = APPS_WALK_FRAMES) -> dict:
+    """The apps' inputs under `root`: a calibration directory
+    (`write_calibration`), the closed loop's captures with `gt_poses.txt`,
+    and the walk's captures.  Returns their paths (`calib`, `loop`,
+    `walk`, `gt`)."""
+    from pathlib import Path
+
+    root = Path(root)
+    paths = {"calib": root / "calib", "loop": root / "loop", "walk": root / "walk"}
+    write_calibration(paths["calib"], config(subsample).rig)
+    write_captures(paths["loop"], loop_captures(loop_frames, subsample), loop_poses(loop_frames))
+    write_captures(paths["walk"], captures(walk_frames, subsample))
+    paths["gt"] = paths["loop"] / "gt_poses.txt"
+    return paths
+
+
+def long_config(cfg: FrameworkConfig) -> FrameworkConfig:
+    """`cfg` with small map capacities, so that a run over the loop grows
+    the map, solves its graph with LM-PCG and partitions it often:
+    `max_keyframes` 4, `max_edges` 8, `pcg_threshold_kf` 4,
+    `partition_every_n_kf` 2."""
+    return cfg.replace(
+        map=dataclasses.replace(cfg.map, max_keyframes=4, max_edges=8, partition_every_n_kf=2),
+        graph=dataclasses.replace(cfg.graph, pcg_threshold_kf=4),
+    )

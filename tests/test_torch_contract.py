@@ -18,16 +18,23 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SLICE_MODULES = [
     "rgbd360_tpu_torch",
+    "rgbd360_tpu_torch.apps._common",
     "rgbd360_tpu_torch.apps.grabber",
+    "rgbd360_tpu_torch.apps.kf_slam",
+    "rgbd360_tpu_torch.apps.odometry",
     "rgbd360_tpu_torch.calibration.spec",
     "rgbd360_tpu_torch.config",
     "rgbd360_tpu_torch.convert",
     "rgbd360_tpu_torch.core.frame",
+    "rgbd360_tpu_torch.io.bin_format",
     "rgbd360_tpu_torch.io.calib",
     "rgbd360_tpu_torch.io.clams",
+    "rgbd360_tpu_torch.io.dataset",
+    "rgbd360_tpu_torch.io.pcd",
     "rgbd360_tpu_torch.ops._build",
     "rgbd360_tpu_torch.ops.bilateral",
     "rgbd360_tpu_torch.ops.camera",
+    "rgbd360_tpu_torch.ops.filters",
     "rgbd360_tpu_torch.ops.hopper_kernels",
     "rgbd360_tpu_torch.ops.pyramid",
     "rgbd360_tpu_torch.ops.se3",
@@ -37,15 +44,19 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.registration.dense",
     "rgbd360_tpu_torch.registration.planes",
     "rgbd360_tpu_torch.slam.graph",
+    "rgbd360_tpu_torch.slam.graph_backend",
     "rgbd360_tpu_torch.slam.loop_closure",
     "rgbd360_tpu_torch.slam.map",
     "rgbd360_tpu_torch.slam.odometry",
+    "rgbd360_tpu_torch.slam.pbmap_slam",
+    "rgbd360_tpu_torch.slam.plane_ba",
     "rgbd360_tpu_torch.slam.relocalizer",
     "rgbd360_tpu_torch.slam.topological",
     "rgbd360_tpu_torch.synthetic",
     "rgbd360_tpu_torch.utils.host",
     "rgbd360_tpu_torch.utils.metrics",
     "rgbd360_tpu_torch.utils.trace",
+    "rgbd360_tpu_torch.utils.viz",
     "chip_smoke",
 ]
 

@@ -232,3 +232,50 @@ def test_pose_graph_solve_is_deterministic_on_the_card(cuda, pcg):
     h1 = G._graph_normal_equations(g.poses, g, (lm, 10.0))
     h2 = G._graph_normal_equations(g.poses, g, (lm, 10.0))
     assert all(torch.equal(a, b) for a, b in zip(h1, h2))
+
+
+@pytest.mark.cuda
+def test_plane_ba_solve_is_deterministic_on_the_card(cuda):
+    """A second planar BA solve is bit-identical (incidence products, no
+    atomic scatter-adds), and it recovers the box room's poses."""
+    from rgbd360_tpu_torch.ops import se3
+    from rgbd360_tpu_torch.slam import plane_ba as B
+
+    rng = np.random.default_rng(0)
+    planes = torch.tensor([[1, 0, 0, 3.0], [-1, 0, 0, 3.0], [0, 1, 0, 1.5], [0, -1, 0, 1.5],
+                           [0, 0, 1, 4.0], [0, 0, -1, 4.0]], device="cuda")
+    step = se3.se3_exp(torch.tensor([0.25, 0.02, 0.1, 0.01, 0.06, 0.0], device="cuda"))
+    gt = [torch.eye(4, device="cuda")]
+    for _ in range(5):
+        gt.append(gt[-1] @ step)
+    gt = torch.stack(gt)
+    obs_kf = torch.arange(6, device="cuda").repeat_interleave(6)
+    obs_pl = torch.arange(6, device="cuda").repeat(6)
+    obs = B.predict_plane(gt[obs_kf], planes[obs_pl])
+    noise = torch.from_numpy(rng.normal(0, 0.05, (6, 6)).astype(np.float32)).cuda()
+    poses0 = se3.se3_exp(noise) @ gt
+    poses0[0] = gt[0]
+    prob = B.PlaneBAProblem(poses0, planes + 0.02, obs_kf, obs_pl, obs,
+                            torch.full((36,), 100.0, device="cuda"))
+    first, second = B.optimize_plane_ba(prob, 15), B.optimize_plane_ba(prob, 15)
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3])) and first[3] == second[3]
+    assert float(torch.linalg.norm(first[0][:, :3, 3] - gt[:, :3, 3], dim=1).max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_slot_eigh_is_finite_on_degenerate_matrices(cuda):
+    """The card's batched `eigh` on the padding's all-zero scatter matrices
+    and a one-point segment's: through `_slot_eigh`, finite, and the
+    padding's eigenvectors are the identity's (as LAPACK gives the
+    reference)."""
+    from rgbd360_tpu_torch.ops import segmentation as S
+
+    cov = torch.zeros((8, 16, 3, 3), device="cuda")
+    p = torch.tensor([1.3, -0.4, 2.2], device="cuda")
+    cov[:, 1] = torch.outer(p, p) - torch.outer(p, p)
+    count = torch.zeros((8, 16), device="cuda")
+    count[:, 1] = 1.0
+    val, vec = S._slot_eigh(cov, count)
+    assert torch.isfinite(val).all() and torch.isfinite(vec).all()
+    assert torch.equal(vec[:, 0], torch.eye(3, device="cuda").expand(8, 3, 3))
+    assert torch.equal(val[:, 0], torch.zeros((8, 3), device="cuda"))

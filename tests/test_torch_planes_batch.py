@@ -200,3 +200,74 @@ def test_non_finite_padded_slots_poison_nothing(plane_sets):
     for f in dataclasses.fields(PlaneSet):
         a, b = getattr(merged, f.name), getattr(merged_bad, f.name)
         assert torch.equal(a[merged.valid], b[merged.valid]), f.name
+
+
+def _degenerate_cloud(h=24, w=32):
+    """An organized sensor cloud (1, H, W, 3) with one planar patch and
+    three isolated pixels (one-pixel segments: rank-0 scatter matrices,
+    rounding noise) and nothing else valid: every other slot of the
+    sensor's plane set is padding (no member, an all-zero scatter
+    matrix)."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    xyz = np.stack([(xx - w / 2) * 0.02, (yy - h / 2) * 0.02, np.full((h, w), 2.0)], -1)
+    valid = np.zeros((h, w), bool)
+    valid[2:18, 2:28] = True  # the plane
+    xyz[20, 25:27] = [[0.4, 0.3, 1.0], [0.5, 0.9, 3.0]]
+    valid[20, 25:27] = True  # two pixels too far apart to join
+    xyz[22, 30] = [0.1, -0.7, 1.4]
+    valid[22, 30] = True
+    rgb = np.full((h, w, 3), 128, np.uint8)
+    return (torch.from_numpy(xyz.astype(np.float32))[None], torch.from_numpy(rgb)[None],
+            torch.from_numpy(valid)[None])
+
+
+def _assert_all_finite(planes: PlaneSet, what: str):
+    for f in dataclasses.fields(PlaneSet):
+        a = getattr(planes, f.name)
+        if a.is_floating_point():
+            assert torch.isfinite(a).all(), f"{what}: non-finite `{f.name}` (padding included)"
+
+
+def test_degenerate_slots_are_finite(monkeypatch):
+    """F2: a padded plane slot's non-finite value.  A degenerate slot's
+    scatter matrix (all zero for the padding, rank 0 for a one-pixel
+    segment) is where a solver's output is least defined; here `eigh` is
+    made to return NaN for those (on the CPU it does not, nor did the
+    card's in any probe), and the plane set must stay finite.  With
+    `_slot_eigh` every field of every slot is finite, and the padding's
+    eigenvectors are the identity's, as LAPACK gives the reference."""
+    from rgbd360_tpu_torch.ops import segmentation as seg_ops
+
+    cfg = synthetic.config(SUB, LEVELS).seg
+    cfg = dataclasses.replace(cfg, min_inliers=20, max_planes_sensor=16)
+    xyz, rgb, valid = _degenerate_cloud()
+    plain = seg_ops.segment_planes_sensor(xyz, rgb, valid, cfg)
+    counts = plain.n_inliers[0].tolist()
+    assert int(plain.valid.sum()) == 1 and counts.count(1.0) >= 3 and counts.count(0.0) >= 1
+    _assert_all_finite(plain, "CPU eigh")
+    pad = plain.n_inliers[0] == 0
+    np.testing.assert_array_equal(plain.normal[0][pad].numpy(),
+                                  np.tile([1.0, 0.0, 0.0], (int(pad.sum()), 1)))
+
+    eigh = torch.linalg.eigh
+
+    def card_like_eigh(a):
+        val, vec = eigh(a)
+        singular = torch.linalg.matrix_norm(a) < 1e-5  # all zero, or rounding noise
+        return (torch.where(singular[..., None], torch.nan, val),
+                torch.where(singular[..., None, None], torch.nan, vec))
+
+    monkeypatch.setattr(torch.linalg, "eigh", card_like_eigh)
+    guarded = seg_ops.segment_planes_sensor(xyz, rgb, valid, cfg)
+    _assert_all_finite(guarded, "NaN-returning eigh")
+    for f in ("valid", "n_inliers"):
+        assert torch.equal(getattr(guarded, f), getattr(plain, f))
+    merged = seg_ops.merge_plane_sets(seg_ops.concat_sets(guarded), cfg)
+    _assert_all_finite(merged, "merged")
+
+
+def test_built_plane_sets_are_finite(plane_sets):
+    """Every slot of every plane set the front end builds is finite."""
+    map_planes, query = plane_sets
+    _assert_all_finite(map_planes, "map planes")
+    _assert_all_finite(query, "query planes")

@@ -57,13 +57,29 @@ only the files in `rgbd360_tpu_torch/data/`:
   that into centimetres, so the batch goldens are compared on the same
   maps.
 
+* `apps_golden.npz` (`--apps-only`), the reference's apps
+  (`apps.odometry.main`, `apps.kf_slam.main`) over capture files written by
+  `synthetic.write_app_inputs` (the files the smoke's phase j writes: the calibration
+  directory, the closed loop with `gt_poses.txt`, the walk), with
+  `--no-intrinsics`: the odometry's trajectories (`odometry_*`, plain and
+  `--keyframe`), `KeyframeSLAM`'s record with its tracked solves solved
+  again from jittered seeds (`kf_slam_*`, `kf_slam_track_verify_*`) and
+  the `--pbmap --plane-ba` run's record with its planar BA (`pbmap_*`,
+  `pbmap_ba_*`), both with synchronous keyframe events (with deferred ones
+  the closures an event verifies depend on when it runs); and the long-map runs of phase k (`long_*`):
+  `KeyframeSLAM` and `PbMapGraphSLAM` over the loop at
+  `synthetic.long_config` (capacities 4 keyframes / 8 edges, LM-PCG from 4 keyframes, a partition
+  every 2), with synchronous and deferred events; a run that raises is
+  recorded as `long_*_raised`.
+
     JAX_PLATFORMS=cpu python tools/torch_port_golden.py \
-        [--batch-only | --odometry-only | --keyframe-only]
+        [--batch-only | --odometry-only | --keyframe-only | --apps-only]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import pathlib
 import sys
@@ -85,7 +101,7 @@ from rgbd360_tpu.io.bin_format import RawRigFrame  # noqa: E402
 from rgbd360_tpu.registration import dense as D  # noqa: E402
 from rgbd360_tpu.slam.odometry import FrameToFrameOdometry  # noqa: E402
 from rgbd360_tpu_torch import synthetic  # noqa: E402
-from _reference import reference_builder  # noqa: E402
+from _reference import reference_builder, reference_inputs  # noqa: E402
 
 DATA = ROOT / "rgbd360_tpu_torch" / "data"
 BATCH_FRAMES = 5  # keyframe 0 and a batch of 4
@@ -357,6 +373,62 @@ def lc_verify_branches(slam, calls: list, n_jitters: int = LC_VERIFY_JITTERS) ->
             "lc_verify_rescued": np.asarray(rescued, bool)}
 
 
+TRACK_VERIFY_JITTERS = 13  # unjittered, and +-JITTER_M along each axis
+
+
+def record_tracked_solves(slam, calls: list) -> None:
+    """Keep the inputs of every fused tracked solve of a reference
+    `KeyframeSLAM` run by wrapping its `make_state` and `_fused_track_fn`
+    (the reference package is not edited): `calls` receives, as the
+    tracker runs, (frame, its keyframe's frame, the frame's pyramid, the
+    keyframe's pyramid, the seed, the solve's pose).  A keyframe's pyramid
+    is its frame's own, so the frame of a keyframe is found by the
+    pyramid's identity."""
+    frames: dict = {}  # id(pyramid) -> (frame, pyramid): keeps the pyramids alive
+    make_state, fused = slam.make_state, slam._fused_track_fn()
+
+    def recorded_state(raw):
+        state = make_state(raw)
+        frames[id(state.pyramid)] = (len(slam.events), state.pyramid)
+        return state
+
+    def recorded_fused(params, rgb, depth, kf_planes, kf_pyr, seed):
+        out = fused(params, rgb, depth, kf_planes, kf_pyr, seed)
+        f = len(slam.events)
+        frames[id(out[1])] = (f, out[1])
+        calls.append((f, frames[id(kf_pyr)][0], out[1], kf_pyr, np.asarray(seed, np.float32),
+                      np.asarray(out[4].pose)))
+        return out
+
+    slam.make_state = recorded_state
+    slam._fused_track_fn = lambda: recorded_fused
+
+
+def track_verify_branches(slam, calls: list, n_jitters: int = TRACK_VERIFY_JITTERS) -> dict:
+    """Every recorded tracked solve again through `aligner.align`, from its
+    seed moved by `jitters()[:n_jitters]`: `track_verify_frames` (n,),
+    `track_verify_kf_frames` (n,) the frame of its keyframe,
+    `track_verify_seeds` (n, 4, 4), `track_verify_poses` (n, 4, 4) the
+    run's own solve, `track_verify_branch_poses` (P, n, 4, 4).  A tracked
+    solve leaves most pyramid levels through the accept-if-improved exit,
+    where rounding decides the last step, so one input has several
+    solutions within reach of rounding (PERF.md, Findings)."""
+    frames, kf_frames, seeds, poses, branches = [], [], [], [], []
+    for f, kf, pyr, kf_pyr, seed, pose in calls:
+        frames.append(f), kf_frames.append(kf), seeds.append(seed), poses.append(pose)
+        branches.append([
+            np.asarray(slam.aligner.align(pyr, kf_pyr, jnp.asarray(_jittered(seed[None], j)[0]),
+                                          method=D.PHOTO_DEPTH).pose)
+            for j in jitters()[:n_jitters]
+        ])
+    return {"track_verify_frames": np.asarray(frames, np.int64),
+            "track_verify_kf_frames": np.asarray(kf_frames, np.int64),
+            "track_verify_seeds": np.asarray(seeds, np.float32).reshape(-1, 4, 4),
+            "track_verify_poses": np.asarray(poses, np.float32).reshape(-1, 4, 4),
+            "track_verify_branch_poses": np.asarray(branches, np.float32).reshape(
+                len(frames), n_jitters, 4, 4).transpose(1, 0, 2, 3)}
+
+
 def _keyframe_config(subsample, pyramid_levels, config, async_events):
     cfg = config or synthetic.config(subsample, pyramid_levels)
     return cfg.replace(kf=dataclasses.replace(cfg.kf, async_kf_events=async_events))
@@ -431,16 +503,188 @@ def keyframe_jax(subsample: int = 1, pyramid_levels: int = 5, config=None,
     out = {}
     for mode, name in ((True, "loop_async"), (False, "loop_sync")):
         calls: list = []
-        hook = None if mode else (lambda slam: record_lc_verifies(slam, calls))
-        slam, rec = keyframe_run_jax(caps, mode, subsample, pyramid_levels, config, gt, hook)
+        tracked: list = []
+
+        def hook(slam):
+            record_lc_verifies(slam, calls)
+            record_tracked_solves(slam, tracked)
+
+        slam, rec = keyframe_run_jax(caps, mode, subsample, pyramid_levels, config, gt,
+                                     None if mode else hook)
         out.update({f"{name}_{k}": v for k, v in rec.items()})
         if not mode:
             out.update(lc_verify_branches(slam, calls))
+            out.update(track_verify_branches(slam, tracked))
     rec = kidnap_run_jax(synthetic.kidnap_captures(caps), subsample, pyramid_levels, config,
                          synthetic.kidnap_poses(gt))
     out.update({f"kidnap_{k}": v for k, v in rec.items()})
     if solvers:
         out.update(solvers_jax())
+    return out
+
+
+# ---------------------------------------------------------------- the apps
+
+@contextlib.contextmanager
+def reference_apps(cfg):
+    """The reference's apps (`rgbd360_tpu.apps.{odometry,kf_slam}.main`)
+    run at the port configuration `cfg`: for the duration, the reference's
+    `default_config` returns `cfg`'s twin and the apps' calibration loader
+    gives the rig's own pinhole intrinsics (it assumes the full-size rig).
+    The reference package is not edited."""
+    from rgbd360_tpu import config as ref_config
+    from rgbd360_tpu.apps import kf_slam, odometry
+    from rgbd360_tpu.io.calib import load_calibration
+
+    ref_cfg = reference_inputs(cfg)[0]
+
+    def load_calib(args):
+        return load_calibration(pathlib.Path(args.calib) / "Extrinsics", None, rig=ref_cfg.rig)
+
+    saved = ref_config.default_config, kf_slam.load_calib, odometry.load_calib
+    ref_config.default_config = lambda: ref_cfg
+    kf_slam.load_calib = odometry.load_calib = load_calib
+    try:
+        yield
+    finally:
+        ref_config.default_config, kf_slam.load_calib, odometry.load_calib = saved
+
+
+def apps_odometry_jax(paths: dict, cfg, keyframe: bool = False) -> np.ndarray:
+    """The reference `apps.odometry.main` over the walk: its trajectory."""
+    from rgbd360_tpu.apps import odometry
+
+    argv = [str(paths["walk"]), "--calib", str(paths["calib"]), "--no-intrinsics"]
+    with reference_apps(cfg):
+        return np.asarray(odometry.main(argv + (["--keyframe"] if keyframe else [])), np.float32)
+
+
+def pbmap_record(slam, gt=None) -> dict:
+    """What a finished `PbMapGraphSLAM` run is compared on (call after
+    `flush()`): the keys of `chip_smoke.pbmap_record`."""
+    from rgbd360_tpu.slam.graph import graph_chi2
+
+    ev = slam.events
+    n_kf, n_e = int(slam.map.n_kf), int(slam.map.n_edges)
+    edges = np.concatenate(
+        [np.asarray(slam.map.graph.edges_ij)[:n_e],
+         np.asarray(slam.map.edge_is_lc)[:n_e, None].astype(np.int32)], axis=1)
+    order = np.lexsort(edges.T[::-1])
+    out = {
+        "keyframe": np.array([e["keyframe"] for e in ev]),
+        "ref_kf": np.array([e.get("ref_kf", -1) for e in ev], np.int64),
+        "no_assoc": np.int64(slam.no_assoc),
+        "edges": edges[order],
+        "edge_rel": np.asarray(slam.map.graph.rel)[:n_e][order],
+        "n_loop_closures": np.int64(slam.n_loop_closures),
+        "area": np.asarray(slam.map.area)[:n_kf],
+        "n_areas": np.int64(int(slam.map.n_areas)),
+        "trajectory": np.stack(slam.trajectory).astype(np.float32),
+        "opt_poses": np.asarray(slam.map.opt_poses)[:n_kf],
+        "chi2": np.float32(graph_chi2(slam.map.graph)),
+        "loop_closures": np.array([e.get("loop_closures", 0) for e in ev if e["keyframe"]]),
+    }
+    if gt is not None:
+        out["gt"] = np.asarray(gt, np.float32)
+    return out
+
+
+def apps_kf_slam_jax(paths: dict, cfg, pbmap: bool = False, plane_ba: bool = False,
+                     n_jitters: int = 0) -> dict:
+    """The reference `apps.kf_slam.main` over the loop (with `--gt`): the
+    tracker's record (`keyframe_record`, or `pbmap_record` with `pbmap`),
+    with `plane_ba` the planar BA's problem and result under `ba_*`,
+    recorded by wrapping `slam.plane_ba.optimize_plane_ba`, and with
+    `n_jitters` the `KeyframeSLAM`'s tracked solves solved again from that
+    many jittered seeds (`track_verify_*`, see `track_verify_branches`)."""
+    from rgbd360_tpu.apps import kf_slam
+    from rgbd360_tpu.slam import plane_ba as B
+
+    argv = [str(paths["loop"]), "--calib", str(paths["calib"]), "--no-intrinsics",
+            "--gt", str(paths["gt"])]
+    argv += (["--pbmap"] if pbmap else []) + (["--plane-ba"] if plane_ba else [])
+    ba, solve = {}, B.optimize_plane_ba
+
+    def record(prob, *a, **kw):
+        res = jax.device_get(solve(prob, *a, **kw))
+        ba.update(poses=np.asarray(res[0]), chi2=np.float32(res[2]), iters=np.int64(res[3]),
+                  obs_kf=np.asarray(prob.obs_kf), obs_pl=np.asarray(prob.obs_pl))
+        return res
+
+    from rgbd360_tpu.slam.odometry import KeyframeSLAM
+
+    tracked: list = []
+    init = KeyframeSLAM.__init__
+
+    def init_recording(self, *a, **kw):
+        init(self, *a, **kw)
+        record_tracked_solves(self, tracked)
+
+    B.optimize_plane_ba = record
+    KeyframeSLAM.__init__ = init_recording
+    try:
+        with reference_apps(cfg):
+            slam = kf_slam.main(argv)
+    finally:
+        B.optimize_plane_ba = solve
+        KeyframeSLAM.__init__ = init
+    gt = np.loadtxt(paths["gt"]).reshape(-1, 4, 4)
+    rec = pbmap_record(slam, gt) if pbmap else keyframe_record(slam, gt)
+    rec.update({f"ba_{k}": v for k, v in ba.items()})
+    if tracked and n_jitters:
+        rec.update(track_verify_branches(slam, tracked, n_jitters))
+    return rec
+
+
+def apps_jax(paths: dict, subsample: int = 1, pyramid_levels: int = 5) -> dict:
+    """The reference's runs of the smoke's phase j (see the module doc)."""
+    cfg = synthetic.config(subsample, pyramid_levels)
+    out = {"odometry_trajectory": apps_odometry_jax(paths, cfg),
+           "odometry_kf_trajectory": apps_odometry_jax(paths, cfg, keyframe=True)}
+    # both trackers with SYNCHRONOUS keyframe events: a deferred reference
+    # run is a race on the CPU (which closures an event verifies depends on
+    # when it is advanced: the deferred KeyframeSLAM app missed the closure
+    # 0-4 that its synchronous run and the port on the card accept; the
+    # PbMap app at the tests' size closes 25 loops deferred, 35 synchronous)
+    sync = _keyframe_config(subsample, pyramid_levels, cfg, False)
+    rec = apps_kf_slam_jax(paths, sync, n_jitters=TRACK_VERIFY_JITTERS)
+    out.update({f"kf_slam_{k}": v for k, v in rec.items()})
+    rec = apps_kf_slam_jax(paths, sync, pbmap=True, plane_ba=True)
+    out.update({f"pbmap_{k}": v for k, v in rec.items()})
+    return out
+
+
+def pbmap_run_jax(caps, async_events: bool, config, gt=None):
+    """The reference `PbMapGraphSLAM` over the captures, then `flush()`:
+    (tracker, record)."""
+    from rgbd360_tpu.slam.pbmap_slam import PbMapGraphSLAM
+
+    cfg = _keyframe_config(1, 5, config, async_events)
+    slam = PbMapGraphSLAM(reference_builder(cfg))
+    for rgb, d in caps:
+        slam.process(RawRigFrame(rgb=rgb, depth_mm=d))
+    slam.flush()
+    return slam, pbmap_record(slam, gt)
+
+
+def long_jax(subsample: int = 1, pyramid_levels: int = 5, n_frames: int = LOOP_FRAMES) -> dict:
+    """The reference's runs of the smoke's long-map phase k: `KeyframeSLAM`
+    and `PbMapGraphSLAM` over the loop at `synthetic.long_config`, with deferred and
+    with synchronous events.  A run that raises (the deferred partition of
+    a map that grew under it) is recorded as `long_*_raised`."""
+    cfg = synthetic.long_config(synthetic.config(subsample, pyramid_levels))
+    gt = synthetic.loop_poses(n_frames)
+    caps = synthetic.loop_captures(n_frames, subsample)
+    out = {}
+    for name, run in (("kf", lambda m: keyframe_run_jax(caps, m, config=cfg, gt=gt)),
+                      ("pb", lambda m: pbmap_run_jax(caps, m, cfg, gt))):
+        for mode, tag in ((False, "sync"), (True, "async")):
+            try:
+                _, rec = run(mode)
+            except ValueError as err:
+                out[f"long_{name}_{tag}_raised"] = np.str_(str(err))
+                continue
+            out.update({f"long_{name}_{tag}_{k}": v for k, v in rec.items()})
     return out
 
 
@@ -455,8 +699,30 @@ def main(argv=None) -> None:
                       help="write only odometry_golden.npz")
     only.add_argument("--keyframe-only", action="store_true",
                       help="write only keyframe_golden.npz")
+    only.add_argument("--apps-only", action="store_true",
+                      help="write only apps_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if args.apps_only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            res = apps_jax(synthetic.write_app_inputs(tmp))
+        res.update(long_jax())
+        np.savez_compressed(out_dir / "apps_golden.npz", **res)
+        print(f"wrote {out_dir / 'apps_golden.npz'}")
+        for name in ("kf_slam", "pbmap", "long_kf_sync", "long_kf_async", "long_pb_sync",
+                     "long_pb_async"):
+            if f"{name}_raised" in res:
+                print(f"{name}: raised {res[f'{name}_raised']}")
+                continue
+            print(f"{name}: keyframes at frames {np.flatnonzero(res[f'{name}_keyframe']).tolist()}, "
+                  f"edges (i, j, lc) {res[f'{name}_edges'].tolist()}, closures "
+                  f"{int(res[f'{name}_n_loop_closures'])}, areas {res[f'{name}_area'].tolist()}, "
+                  f"ref_kf {res.get(f'{name}_ref_kf', np.zeros(0)).tolist()}")
+        print("plane BA: chi2", float(res["pbmap_ba_chi2"]), "in", int(res["pbmap_ba_iters"]),
+              "LM iterations,", len(res["pbmap_ba_obs_kf"]), "observations")
+        return
     if not (args.batch_only or args.odometry_only):
         res = keyframe_jax()
         np.savez_compressed(out_dir / "keyframe_golden.npz", **res)

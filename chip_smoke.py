@@ -122,6 +122,33 @@ k. the long map: `KeyframeSLAM` and `PbMapGraphSLAM` over the loop at
    completes, and each partition labels the keyframes its snapshot covers
    as the spectral partition of that snapshot and keeps the later ones'
    areas;
+l. the pair-registration apps on capture files at full size (the
+   calibration directory and the walk's 6 captures): `register_pair` on
+   captures 0 and 5 with `--dense --out` and with `--dense --bilinear`,
+   `benchmark_registration` on captures 0 and 2 (`--repeats 3`: PbMap,
+   dense photo / depth / both / bilinear, ICP point / plane, GICP and the
+   joint rig aligner from the raw sensors) and `register_sequence
+   --window 2 --out` over the 6, each as a user runs it, held to
+   `data/registration_golden.npz` (the reference's own `main` over the
+   same files, `tools/torch_port_golden.py --registration-only`): PbMap
+   success and matches equal (its pose printed, with the tied votes of
+   the symmetric room's aliases where it took another than the golden's);
+   `register_pair` and `register_sequence` seeded with the golden's PbMap
+   results, so that what they seed is held on every run: ICP and GICP
+   poses to ICP_TOL, every dense solve of the apps within APP_DENSE_TOL of
+   the nearest of the golden's jittered solves of it and, solved again
+   from the golden's seed on the reference's stitch maps, within the
+   golden tolerance; `register_sequence`'s edges, graph, chi2
+   (KF_CHI2_RTOL), trajectory (SEQ_TRAJ_TOL) and partition, and the solver on
+   the golden's graph to SOLVER_CHI2_RTOL; `DenseAligner.align` with
+   occlusion 1 and 2 and a pinhole `DenseAligner(intrinsics=K)` on sensor
+   0's 240x320 pair, the same way; 1 K1 + 4 K2 launches per sphere, rig
+   and pinhole pyramid, and (phase h) no other device op in a rig
+   pyramid; GICP's loop reads nothing back (sync debug mode).  Printed:
+   each method's ms (the app's own timing, CUDA-synchronized), each app's
+   wall, the phase's peak memory.  Phases b and c hold K1 and K2 at the
+   rig's and the pinhole solve's shapes (8x240x320 ... 8x15x20 and
+   1x240x320 ... 1x15x20) too;
 h. the measurements that need `torch.profiler` (the kernels' device times
    of phases b and c, the profiled pyramid of phase d, the profiled frames
    of phases g and i), put off until every host-clock timing is taken: once a process has profiled once
@@ -137,7 +164,7 @@ held finite in every field of every slot, padding included, and phase a
 probes the card's `eigh` on degenerate 3x3 matrices (`probe_degenerate_eigh`).
 
 The last two lines are a JSON line of per-kernel results (launch counts
-summed over the gated runs of phases d-k, each counted from 0; times,
+summed over the gated runs of phases d-l, each counted from 0; times,
 bytes, bounds and the library call's time at the main path's level-0
 shapes, and per shape under `shapes`) and the contract line
 `{"ok": true, "device": {...}}`.
@@ -147,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -187,6 +215,12 @@ BATCH_FRAMES = 5  # keyframe 0 and a batch of 4
 YAW_HYPOTHESES = 8
 LEVEL_SHAPES = [(320, 1920), (160, 960), (80, 480), (40, 240), (20, 120)]
 TRANSITION_SHAPES = LEVEL_SHAPES[:-1]
+# the rig pyramid of phase l: the 8 sensors' 240x320 images as the batch;
+# its pinhole solve's pyramid: one sensor's, the same shapes with a batch of 1
+RIG_SENSORS = 8
+RIG_BATCHES = {"rig": RIG_SENSORS, "pinhole": 1}
+RIG_LEVEL_SHAPES = [(240, 320), (120, 160), (60, 80), (30, 40), (15, 20)]
+RIG_TRANSITION_SHAPES = RIG_LEVEL_SHAPES[:-1]
 STEP_M, STEP_TOL_M = 0.1, 0.02  # the reference's end-to-end synth gate
 # Port vs JAX golden, per pair.  The port's stitch maps differ from the
 # reference's on the sensor-tie columns and its sums run in another order,
@@ -334,6 +368,11 @@ def _device_events(prof) -> list:
 
 _FLUSH: list = []  # one int32 buffer of 128 MB, larger than the 50 MB L2
 _DEFERRED: list = []  # phase h: the jobs that run the profiler
+# phase h's pyramid profiles, run before the frame profiles: after a session
+# of ~10^4 device ops a later session of a few launches lost one of them
+# (the rig pyramid's profile showed 4 of its 5 launches in 5 of 5 tries
+# after phase i's frame profiles, all 5 with none before it; an H100)
+_DEFERRED_PYRAMIDS: list = []
 
 
 def _device_time(fn, cold: bool, n: int = 20) -> tuple[float, float]:
@@ -453,6 +492,24 @@ def check_k1(rng) -> dict:
                     lambda: HK.fused_gradients_plain(xi, mask), 0, 0, timed=False,
                 ))
     groups = {}
+    for tag, c in RIG_BATCHES.items():
+        for h, w in RIG_LEVEL_SHAPES:
+            x = _plateau_inputs(c, h, w, rng)
+            rows.append(_check_and_time(
+                f"K1 fused_gradients ({tag})", (c, h, w), lambda x=x: HK.fused_gradients(x),
+                lambda x=x: HK.fused_gradients_plain(x), _k1_bytes([x]),
+                K1_FLOPS_PER_PIXEL * c * h * w,
+            ))
+        # the pyramid's launch: gray and depth of the c sensors at 5 levels
+        stacks = [f(c, h, w, rng) for h, w in RIG_LEVEL_SHAPES
+                  for f in (_plateau_inputs, _depth_inputs)]
+        groups[tag] = _check_and_time(
+            f"K1 fused_gradients_levels ({tag})", (c, f"{tag} 5 levels", len(stacks)),
+            lambda s=stacks: HK.fused_gradients_levels(s, None),
+            lambda s=stacks: HK.fused_gradients_levels_plain(s, None), _k1_bytes(stacks),
+            K1_FLOPS_PER_PIXEL * sum(x.numel() for x in stacks),
+        )
+        rows.append(groups[tag])
     for b in (1, 4):
         stacks = [f(b, h, w, rng) for h, w in LEVEL_SHAPES for f in (_plateau_inputs, _depth_inputs)]
         masks = [m for m in _seam_like_masks(LEVEL_SHAPES, rng) for _ in range(2)]
@@ -521,6 +578,23 @@ def check_k2(rng) -> dict:
             )
             rows.append(row)
             transitions[(c, h, w)] = row
+    for (tag, c), (h, w) in itertools.product(RIG_BATCHES.items(), RIG_TRANSITION_SHAPES):
+        x, d = _plateau_inputs(c, h, w, rng), _depth_inputs(c, h, w, rng)
+        nbytes, flops = 5 * c * h * w, K2_FLOPS_PER_OUTPUT * c * h * w // 4
+        rows.append(_check_and_time(
+            f"K2 fused_pyr_down_circular ({tag})", (c, h, w),
+            lambda x=x: HK.fused_pyr_down_circular(x),
+            lambda x=x: HK.fused_pyr_down_plain(x, circular=True), nbytes, flops,
+            library=_sandwich(x),
+        ))
+        row = _check_and_time(
+            f"K2 fused_level_down ({tag}, gray + depth)", (c, h, w),
+            lambda x=x, d=d: HK.fused_level_down(x, d, MIN_DEPTH, MAX_DEPTH),
+            lambda x=x, d=d: HK.fused_level_down_plain(x, d, MIN_DEPTH, MAX_DEPTH),
+            2 * nbytes, flops + DEPTH_FLOPS_PER_OUTPUT * c * h * w // 4, library=_sandwich(x),
+        )
+        rows.append(row)
+        transitions[(c, h, w)] = row
     for c, h, w in AWKWARD_K2:
         x = _plateau_inputs(c, h, w, rng)
         d = _depth_inputs(c, h, w, rng)
@@ -617,24 +691,24 @@ def _gate_gaps(what, got, ref, tol_m, tol_rad) -> tuple[float, float]:
     return dt, dr
 
 
-def _gate_branches(what, got: np.ndarray, branches: np.ndarray) -> np.ndarray:
-    """Each pose of `got` (n, 4, 4) within the golden tolerance of the
-    nearest of the golden's branches (P, n, 4, 4); returns the matched
-    branch of each element."""
+def _gate_branches(what, got: np.ndarray, branches: np.ndarray,
+                   tol: tuple = (GOLDEN_TOL_M, GOLDEN_TOL_RAD)) -> np.ndarray:
+    """Each pose of `got` (n, 4, 4) within `tol` (the golden tolerance by
+    default) of the nearest of the golden's branches (P, n, 4, 4); returns
+    the matched branch of each element."""
     matched, worst = [], (0.0, 0.0)
     for i in range(len(got)):
         gaps = [_pose_gaps(got[i : i + 1], b[i : i + 1]) for b in branches]
-        j = min(range(len(gaps)),
-                key=lambda b: gaps[b][0] / GOLDEN_TOL_M + gaps[b][1] / GOLDEN_TOL_RAD)
+        j = min(range(len(gaps)), key=lambda b: gaps[b][0] / tol[0] + gaps[b][1] / tol[1])
         matched.append(j)
         worst = (max(worst[0], gaps[j][0]), max(worst[1], gaps[j][1]))
     to0 = _pose_gaps(got, branches[0])
     spread = max(_pose_gaps(b, branches[0])[0] for b in branches)
     print(f"{what}: nearest golden branches {matched}: max gap {worst[0]:.3e} m "
-          f"(tol {GOLDEN_TOL_M}), {worst[1]:.3e} rad (tol {GOLDEN_TOL_RAD}); to the "
+          f"(tol {tol[0]}), {worst[1]:.3e} rad (tol {tol[1]}); to the "
           f"unjittered golden {to0[0]:.3e} m, {to0[1]:.3e} rad; the golden's "
           f"{len(branches)} branches spread over {spread:.3e} m")
-    if worst[0] > GOLDEN_TOL_M or worst[1] > GOLDEN_TOL_RAD:
+    if worst[0] > tol[0] or worst[1] > tol[1]:
         raise AssertionError(f"{what}: poses leave the golden's tolerance")
     return np.asarray(matched)
 
@@ -709,7 +783,9 @@ def check_slice() -> dict:
           f"{np.abs(run['errors'] - golden['errors']).max():.3e}; "
           f"{same_iters}/{len(poses)} pairs with identical iteration counts")
 
-    pyramid = check_pyramid_stage(builder, frames[0])
+    sphere = builder.build(frames[0])
+    pyramid = check_pyramid_stage(lambda: builder.pyramid(sphere),
+                                  builder.config.dense.pyramid_levels)
     build_ms = statistics.median(run["build_ms"])
     align_ms = statistics.median(run["align_ms"])
     print(f"build_with_pyramid: median {build_ms:.3f} ms/frame over {N_FRAMES} "
@@ -728,21 +804,20 @@ def check_slice() -> dict:
     return dict(launches=launches, build_ms=build_ms, align_ms=align_ms, pyramid=pyramid)
 
 
-def check_pyramid_stage(builder, frame) -> dict:
-    """One frame's pyramid is 1 K1 launch and 4 K2 launches, and (in phase
-    h) a profiled pyramid runs nothing else on the device (no `bmm` pair, no
-    seam multiply, no stack copy).  Returns its wall ms; phase h adds its
-    device ops and busy ms."""
-    sphere = builder.build(frame)
-    builder.pyramid(sphere)
+def check_pyramid_stage(pyramid, levels: int, what: str = "pyramid stage") -> dict:
+    """One pyramid (`pyramid()`, a frame's or a rig's) is 1 K1 launch and
+    levels - 1 K2 launches, and (in phase h) a profiled pyramid runs
+    nothing else on the device (no `bmm` pair, no seam multiply, no stack
+    copy).  Returns its wall ms; phase h adds its device ops and busy ms."""
+    pyramid()
     _reset_counts()
-    builder.pyramid(sphere)
+    pyramid()
     counts = _counts()
-    levels = builder.config.dense.pyramid_levels
     if counts != {"fused_gradients": 1, "fused_pyr_down": levels - 1}:
-        raise AssertionError(f"one pyramid launched {counts}, not 1 K1 and {levels - 1} K2")
-    pyr_ms = statistics.median(_host_ms(lambda: builder.pyramid(sphere), reps=30))
-    print(f"pyramid stage: launches {counts}; wall {pyr_ms:.3f} ms (median of 30)")
+        raise AssertionError(f"{what}: one pyramid launched {counts}, not 1 K1 and "
+                             f"{levels - 1} K2")
+    pyr_ms = statistics.median(_host_ms(pyramid, reps=30))
+    print(f"{what}: launches {counts}; wall {pyr_ms:.3f} ms (median of 30)")
     out = dict(wall_ms=pyr_ms)
 
     def profiled() -> None:
@@ -750,19 +825,20 @@ def check_pyramid_stage(builder, frame) -> dict:
         # fewer ops than were launched is taken again, and none may show more
         names: list = []
         for _ in range(5):
-            wall, busy, ops, _, _ = _profile(lambda: builder.pyramid(sphere), names)
+            wall, busy, ops, _, _ = _profile(pyramid, names)
             if ops >= levels:
                 break
         foreign = [n for n in names
                    if "fused_gradients_kernel" not in n and "level_down_kernel" not in n]
         if ops != levels or foreign:
-            raise AssertionError(f"the pyramid stage launched {levels} kernels and its profile "
-                                 f"shows {ops} device ops, {foreign} not K1's or K2's")
-        print(f"pyramid stage, profiled: {ops} device ops (all K1's and K2's kernels), device "
+            raise AssertionError(f"{what} launched {levels} kernels and its profile "
+                                 f"shows {ops} device ops ({names}), {foreign} not K1's "
+                                 f"or K2's")
+        print(f"{what}, profiled: {ops} device ops (all K1's and K2's kernels), device "
               f"busy {busy:.4f} ms, wall {wall:.3f} ms")
         out.update(device_ops=ops, busy_ms=busy)
 
-    _DEFERRED.append(profiled)
+    _DEFERRED_PYRAMIDS.append(profiled)
     return out
 
 
@@ -2415,11 +2491,573 @@ def check_long_phase(smi: str) -> None:
         raise AssertionError(f"phase k: {len(failed)} gates failed: " + " | ".join(failed))
 
 
+# ------------------------------------------------------------- phase l
+#
+# The pair-registration apps on capture files at full size
+# (`register_pair`, `benchmark_registration`, `register_sequence`), held to
+# `data/registration_golden.npz` (`tools/torch_port_golden.py
+# --registration-only`: the reference's own `main` over the same files).
+# PbMap: success and matches equal; its pose is printed beside the
+# golden's, not gated: in the eightfold-symmetric room the walk's wall
+# matches have several aliases (rotations and mirror images of the
+# octagon) between which the greedy matcher's votes decide (printed), and
+# the packages may take different ones.  So the apps that seed from PbMap
+# run with the golden's PbMap results in place of their own
+# (`recorded_registration(seeds)`), and what those seed is held on every
+# run: GICP poses to ICP_TOL; the apps' own dense solves (bilinear and
+# rig_joint included) within APP_DENSE_TOL of the NEAREST of the golden's
+# solves of them from micrometre-jittered seeds (`_gate_branches`, phase
+# i's rule: a solve that leaves a level through the accept-if-improved
+# exit has several solutions within reach of rounding);
+# `register_sequence`'s edges equal, its graph's leaves
+# (`check_seq_graph`), chi2 within KF_CHI2_RTOL (the information matrices
+# are the edges' Hessians, as in phase i), trajectory within SEQ_TRAJ_TOL
+# of the golden's graph solved with the branches its edges matched and
+# the app's information matrices (`branch_matched_trajectory`), its area
+# labels the same partition; the port's solver on the golden's own
+# graph (`check_graph_solver`).  The apps run through their `main`, on
+# the port's own stitch maps; the golden's dense solves are solved again from
+# its seeds on the reference's maps and held to the golden tolerance
+# (`resolve_registration`).
+REGISTRATION_GOLDEN = DATA / "registration_golden.npz"
+REG_PAIR = (0, 5)  # the walk's captures 0.5 m apart (register_pair)
+REG_BENCH_PAIR = (0, 2)  # benchmark_registration's pair
+REG_EXTRA_PAIR = (0, 1)  # the occlusion modes and the pinhole solve
+REG_WINDOW = 2
+# ICP and GICP: a fixed iteration count with no accept test, so only the
+# sums' order and the warp's rounding separate the packages (measured on
+# the CPU at the tests' size: 5.5e-6 m); the bound is the golden's.
+ICP_TOL_M, ICP_TOL_RAD = GOLDEN_TOL_M, GOLDEN_TOL_RAD
+# The apps' own dense solves stitch with the port's maps, which differ
+# from the reference's on the sensor-tie columns (phase i's LC_EDGE_TOL,
+# for the same cause).  Measured on an H100 from the nearest branch:
+# register_pair 1.53e-3 m, 1.19e-4 rad from the golden's PbMap pose
+# (1.37e-3 m, 8.1e-5 rad from its own, 7e-13 m away: the seed picks the
+# branch), the benchmark 5.3e-4 m, 1.1e-4 rad, register_sequence's edges
+# 7.8e-4 m, 1.0e-4 rad; the golden's solves re-solved on the reference's
+# maps lie within 1.9e-4 m of theirs.
+APP_DENSE_TOL = LC_EDGE_TOL
+# A sequence edge's information matrix (its solve's Hessian) against the
+# golden's: the largest relative Frobenius gap over the edges.  The
+# Hessian is taken at the solve's pose on the port's stitch maps (see
+# APP_DENSE_TOL); measured 1.2e-2 on an H100 (2.5e-4 on the CPU at the
+# tests' size).
+SEQ_INFO_RTOL = 0.05
+# `register_sequence`'s trajectory against `branch_matched_trajectory`
+# with the app's information matrices: what is left are the edges' gaps to
+# their branches (under APP_DENSE_TOL), which this inconsistent graph
+# amplifies; measured on an H100 1.37e-3 m, 9.0e-5 rad (edges within
+# 7.8e-4 m of their branches), 6.2e-5 m on the CPU at the tests' size.
+SEQ_TRAJ_TOL = (5e-3, 1e-3)
+BENCH_DENSE = ("dense_photo", "dense_depth", "dense_both", "dense_bilerp", "rig_joint")
+BENCH_ICP = ("icp_point", "icp_plane", "gicp")
+PAIR_OUT_FILES = ("poses.json", "sphere1.png", "sphere2.png", "aligned_pair.ply")
+SEQ_OUT_FILES = ("trajectory.txt", "areas.txt")
+GRAPH_LEAVES = ("poses", "vmask", "edges_ij", "rel", "info", "emask")
+
+
+def greedy_votes(ref, trg, cfg, mode) -> list:
+    """The two largest votes of each step of `match_planes`'s greedy loop
+    (its operations, for one pair of plane sets) while it still picks a
+    pair: at the step that decides between two aliases of the room, the
+    two are close."""
+    from rgbd360_tpu_torch.registration import planes as P
+
+    cand = P.unary_compatibility(ref, trg, cfg, mode)
+    cons = P.binary_consistency(ref, trg, cand, cfg)
+    k1, k2 = cand.shape
+    w = torch.sqrt(torch.clamp(ref.area[:, None], min=1e-3)
+                   * torch.clamp(trg.area[None, :], min=1e-3))
+    cons_flat = cons.reshape(k1 * k2, k1 * k2)
+    rows = torch.arange(k1, device=cand.device)[:, None]
+    cols = torch.arange(k2, device=cand.device)[None, :]
+    steps = []
+    for _ in range(cfg.max_matches):
+        live_w = torch.where(cand, w, 0.0).flatten()
+        votes = P._mv(cons_flat.to(torch.float32), live_w).reshape(cand.shape)
+        votes = torch.where(cand, votes * w, -1.0).flatten()
+        top = torch.topk(votes, min(2, votes.numel())).values.cpu().tolist()
+        if top[0] <= 0:
+            break
+        steps.append(top)
+        best = int(torch.argmax(votes))
+        cand = (cand & cons_flat[best].reshape(cand.shape) & (rows != best // k2)
+                & (cols != best % k2))
+    return steps
+
+
+def golden_seeds(golden: dict, poses: str, success: str) -> tuple:
+    """The golden's PbMap results as `recorded_registration`'s seeds."""
+    return np.reshape(golden[poses], (-1, 4, 4)), np.atleast_1d(golden[success])
+
+
+@contextlib.contextmanager
+def recorded_registration(seeds: tuple | None = None):
+    """Record the results of the port's dense solves
+    (`DenseAligner.align`, `RigDenseAligner.align`: pose, ill-posed flag;
+    a call repeated on the same inputs, the benchmark's repeats, once, as
+    the golden tool records the reference's) and PbMap registrations
+    (`PlaneRegistration.register`: success, matches, pose, and each
+    greedy step's two largest votes) while the apps run; yields {"dense": [...],
+    "pbmap": [...], "votes": [...]}.  With `seeds` (`golden_seeds`), the
+    k-th registration returns the golden's k-th pose and success in place
+    of its own (which is recorded), so that what it seeds starts where the
+    golden's did."""
+    from rgbd360_tpu_torch.registration.planes import PLANAR_3DOF, PlaneRegistration
+    from rgbd360_tpu_torch.registration.rig_dense import RigDenseAligner
+
+    log, seen = {"dense": [], "pbmap": [], "votes": []}, set()
+    saved = [(c, c.align) for c in (D.DenseAligner, RigDenseAligner)]
+    register = PlaneRegistration.register
+
+    def wrap(align):
+        def recorded(self, src, trg, init_pose=None, method=D.PHOTO_DEPTH, occlusion=0):
+            res = align(self, src, trg, init_pose, method, occlusion)
+            seed = None if init_pose is None else torch.as_tensor(init_pose).cpu().numpy()
+            key = (id(self), id(src), id(trg), method, occlusion,
+                   None if seed is None else seed.tobytes())
+            if key not in seen:
+                seen.add(key)
+                log["dense"].append((res.pose.cpu().numpy(), bool(res.ill_posed)))
+            return res
+        return recorded
+
+    def recorded_register(self, ref, trg, mode=PLANAR_3DOF):
+        res = register(self, ref, trg, mode)
+        k = len(log["pbmap"])
+        log["pbmap"].append((bool(res.success), int(res.n_matches), res.pose.cpu().numpy()))
+        log["votes"].append(greedy_votes(ref, trg, self.cfg, mode))
+        if seeds is None or k >= len(seeds[0]):
+            return res
+        dev = res.pose.device
+        return dataclasses.replace(res, pose=torch.as_tensor(seeds[0][k], device=dev),
+                                   success=torch.as_tensor(bool(seeds[1][k]), device=dev))
+
+    for cls, align in saved:
+        cls.align = wrap(align)
+    PlaneRegistration.register = recorded_register
+    try:
+        yield log
+    finally:
+        for cls, align in saved:
+            cls.align = align
+        PlaneRegistration.register = register
+
+
+def check_pbmap_results(log: dict, success, matches, poses, what: str, n: int | None = None):
+    """The first `n` PbMap registrations of `log` (all by default) against
+    the golden's: success and matches equal.  Their poses are printed
+    beside the golden's, with each greedy step's two largest votes for
+    those that took another alias than the golden (see the phase's
+    comment)."""
+    got = log["pbmap"][:n]
+    s = np.array([g[0] for g in got])
+    m = np.array([g[1] for g in got])
+    gaps = [_pose_gaps(g[2][None], p[None]) for g, p in zip(got, np.reshape(poses, (-1, 4, 4)))]
+    same = [dt <= PB_TOL_M and dr <= PB_TOL_RAD for dt, dr in gaps]
+    print(f"{what}: PbMap success {s.tolist()} matches {m.tolist()} (golden "
+          f"{np.atleast_1d(success).tolist()}, {np.atleast_1d(matches).tolist()}); poses within "
+          f"PB_TOL of the golden's (its alias) {same}; gaps (m, rad) "
+          f"{[(float(f'{dt:.3e}'), float(f'{dr:.3e}')) for dt, dr in gaps]}")
+    for k, ok in enumerate(same):
+        if not ok:
+            votes = [[float(f"{v:.8g}") for v in step] for step in log["votes"][k]]
+            print(f"{what}: registration {k} took another alias; each greedy step's two "
+                  f"largest votes {votes}")
+    if not (np.array_equal(s, np.atleast_1d(success)) and np.array_equal(m, np.atleast_1d(matches))):
+        raise AssertionError(f"{what}: the PbMap results differ from the golden's")
+
+
+def check_register_pair(rec: dict, log: dict, golden: dict, tag: str, what: str, gate) -> None:
+    """One `register_pair --dense` run seeded with the golden's PbMap
+    result: its own PbMap result, its GICP pose (ICP_TOL) and its dense
+    solve (APP_DENSE_TOL of the nearest of the golden's branches)."""
+    gate(check_pbmap_results, log, golden[f"{tag}_pb_success"], golden[f"{tag}_matches"],
+         golden[f"{tag}_pbmap"], what)
+    gate(_gate_gaps, f"{what} GICP", np.asarray(rec["icp"])[None], golden[f"{tag}_icp"][None],
+         ICP_TOL_M, ICP_TOL_RAD)
+    print(f"{what}: GICP rms {rec['icp_rms']:.6f} (golden {float(golden[f'{tag}_icp_rms']):.6f})")
+    gate(_gate_branches, f"{what} dense (the app's own)", np.asarray(rec["dense"], np.float32)[None],
+         golden[f"{tag}_branch_poses"][:, None], APP_DENSE_TOL)
+
+
+def check_benchmark(results: dict, log: dict, golden: dict, what: str, gate) -> None:
+    """`benchmark_registration`: PbMap's result, the ICP variants (from
+    identity, ICP_TOL), and each dense method (from identity; `rig_joint`
+    from the raw sensors) within APP_DENSE_TOL of the nearest of its
+    branches."""
+    gate(check_pbmap_results, log, golden["bench_pb_success"], golden["bench_pb_matches"],
+         golden["bench_pbmap"], what, n=1)
+    for name in BENCH_ICP:
+        gate(_gate_gaps, f"{what} {name}", results[name][0][None], golden[f"bench_{name}"][None],
+             ICP_TOL_M, ICP_TOL_RAD)
+    if len(log["dense"]) != len(BENCH_DENSE):
+        raise AssertionError(f"{what}: {len(log['dense'])} dense solves, not {len(BENCH_DENSE)}")
+    gate(_gate_branches, f"{what} {', '.join(BENCH_DENSE)} (the app's own)",
+         np.stack([results[name][0] for name in BENCH_DENSE]), golden["bench_dense_branch_poses"],
+         APP_DENSE_TOL)
+
+
+def check_register_sequence(traj, labels, log: dict, graph: dict, golden: dict, what: str,
+                            gate, device) -> None:
+    """`register_sequence` seeded with the golden's PbMap results: the
+    same pairs registered (PbMap success and matches), the same edges
+    kept, the same partition; its own dense solves (APP_DENSE_TOL of their
+    nearest branches), its graph (`check_seq_graph`), its chi2
+    (KF_CHI2_RTOL) and its trajectory (SEQ_TRAJ_TOL of
+    `branch_matched_trajectory` with the app's information matrices); and the port's solver on the golden's
+    own graph (`check_graph_solver`, on `device`)."""
+    ill = np.array([d[1] for d in log["dense"]])
+    pairs = golden["seq_pairs"]
+    edges = pairs[~ill] if len(ill) == len(pairs) else None
+    print(f"{what}: edges {None if edges is None else edges.tolist()} (golden "
+          f"{golden['seq_edges'].tolist()}); areas {labels.tolist()} (golden "
+          f"{golden['seq_labels'].tolist()})")
+    if edges is None or not np.array_equal(edges, golden["seq_edges"]):
+        raise AssertionError(f"{what}: the edges differ from the golden's")
+    if not same_partition(labels, golden["seq_labels"]):
+        raise AssertionError(f"{what}: areas {labels.tolist()}, golden {golden['seq_labels'].tolist()}")
+    gate(check_graph_solver, golden, f"{what} graph solver", device)
+    gate(check_pbmap_results, log, golden["seq_pb_success"], golden["seq_pb_matches"],
+         golden["seq_pb_poses"], what)
+    solves = np.stack([d[0] for d in log["dense"]])
+    matched = gate(_gate_branches, f"{what} dense solves (the app's own)", solves,
+                   golden["seq_branch_poses"], APP_DENSE_TOL)
+    gate(check_seq_graph, graph["leaves"], solves[~ill], golden, what)
+    rel = abs(graph["chi2"] - float(golden["seq_chi2"])) / max(float(golden["seq_chi2"]), 1e-12)
+    print(f"{what}: the app's chi2 {graph['chi2']:.6f} (golden {float(golden['seq_chi2']):.6f}, "
+          f"relative gap {rel:.3e}, tol {KF_CHI2_RTOL})")
+    if rel > KF_CHI2_RTOL:
+        raise AssertionError(f"{what}: chi2 leaves the tolerance")
+    dt, dr = _pose_gaps(traj, golden["seq_trajectory"])
+    print(f"{what}: trajectory {dt:.3e} m, {dr:.3e} rad from the golden's (its edges' "
+          f"unjittered solves)")
+    if matched is None:
+        return
+    info = graph["leaves"][GRAPH_LEAVES.index("info")][: int((~ill).sum())]
+    for name, with_info in (("golden's", None), ("app's", info)):
+        ref_traj = branch_matched_trajectory(golden, matched, ill, device, with_info)
+        dt, dr = _pose_gaps(ref_traj, golden["seq_trajectory"])
+        print(f"{what}: the golden's graph with the matched branches as its edges and the "
+              f"{name} information matrices, solved: {dt:.3e} m, {dr:.3e} rad from the "
+              f"golden's trajectory")
+    gate(_gate_gaps, f"{what} trajectory against the golden's graph with the matched "
+         f"branches and the app's information matrices", traj, ref_traj, *SEQ_TRAJ_TOL)
+
+
+def branch_matched_trajectory(golden: dict, matched: np.ndarray, ill: np.ndarray,
+                              device, info: np.ndarray | None = None) -> np.ndarray:
+    """The trajectory the golden's sequence graph gives when each edge's
+    `rel` is the golden's branch of it that the app's solve matched (the
+    initial poses chained from them, as the app chains them) and, with
+    `info`, the edges' information matrices are those given, solved by
+    the port's `optimize_pose_graph` (held to the golden by
+    `check_graph_solver`).  The graph is far from consistent (its edges,
+    seeded by the room's PbMap aliases, disagree by metres), so its optimum
+    is a compromise that moves with the edges' weights: the app's
+    information matrices, within SEQ_INFO_RTOL of the golden's, move it by
+    centimetres, and the app's trajectory is held against this solve with
+    them, not against the golden's."""
+    leaves = {k: np.array(golden[f"seq_graph_{k}"]) for k in GRAPH_LEAVES}
+    live = np.flatnonzero(~ill)
+    leaves["rel"][: len(live)] = golden["seq_branch_poses"][matched[live], live]
+    if info is not None:
+        leaves["info"][: len(live)] = info
+    rel_of = {(int(i), int(j)): r for (i, j), r in zip(leaves["edges_ij"][: len(live)],
+                                                      leaves["rel"][: len(live)])}
+    poses0 = [np.eye(4)]
+    for j in range(1, len(leaves["poses"])):
+        poses0.append(poses0[-1] @ rel_of.get((j - 1, j), np.eye(4)))
+    leaves["poses"] = np.stack(poses0).astype(np.float32)
+    poses, _, _ = graph_ops.optimize_pose_graph(
+        convert.pose_graph_from_numpy([leaves[k] for k in GRAPH_LEAVES], device))
+    return poses.cpu().numpy()
+
+
+def check_seq_graph(leaves: list, edge_poses: np.ndarray, golden: dict, what: str) -> None:
+    """The graph `register_sequence` assembled against the golden's: the
+    vertex mask, the edges' vertex pairs, the edge mask and the padded
+    slots (identity `rel` and `info`) equal, which holds the edge capacity
+    (a multiple of 8) too; each live edge's `rel` the app's own solve of it
+    bit for bit (those are held to the golden's branches); the chained
+    initial poses within KF_TOL; the information matrices within
+    SEQ_INFO_RTOL, relative."""
+    got = dict(zip(GRAPH_LEAVES, leaves))
+    ref = {k: golden[f"seq_graph_{k}"] for k in GRAPH_LEAVES}
+    for k in ("vmask", "edges_ij", "emask"):
+        if got[k].shape != ref[k].shape or not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"{what} graph: {k} {got[k].tolist()}, golden {ref[k].tolist()}")
+    live = ref["emask"]
+    for k in ("rel", "info"):
+        if not np.array_equal(got[k][~live], ref[k][~live]):
+            raise AssertionError(f"{what} graph: the padded slots' {k} differ from the golden's")
+    if not np.array_equal(got["rel"][live], edge_poses):
+        raise AssertionError(f"{what} graph: the edges' rel are not the app's solves")
+    info = np.abs(np.linalg.norm(got["info"][live] - ref["info"][live], axis=(1, 2))
+                  / np.linalg.norm(ref["info"][live], axis=(1, 2))).max()
+    print(f"{what} graph: vmask, edges_ij, emask and {int((~live).sum())} padded slots equal "
+          f"the golden's; information matrices {info:.3e} relative (tol {SEQ_INFO_RTOL})")
+    _gate_gaps(f"{what} graph: chained initial poses", got["poses"], ref["poses"],
+               KF_TOL_M, KF_TOL_RAD)
+    if not info <= SEQ_INFO_RTOL:
+        raise AssertionError(f"{what} graph: the information matrices leave the tolerance")
+
+
+def check_graph_solver(golden: dict, what: str, device) -> None:
+    """The port's `optimize_pose_graph` on `device` on the golden's own
+    sequence graph against the golden's solve of it: chi2 within
+    SOLVER_CHI2_RTOL, poses within the golden tolerance (not
+    SOLVER_POSE_TOL: this graph is far from consistent, its edges seeded
+    by the room's PbMap aliases, and LM stops at its 10-iteration cap where
+    the poses still move with rounding: 1.4e-4 m, 1.1e-4 rad measured on
+    the CPU at the tests' size)."""
+    leaves = [golden[f"seq_graph_{k}"] for k in GRAPH_LEAVES]
+    poses, chi2, iters = graph_ops.optimize_pose_graph(convert.pose_graph_from_numpy(leaves, device))
+    chi2 = float(chi2)
+    rel = abs(chi2 - float(golden["seq_chi2"])) / max(float(golden["seq_chi2"]), 1e-12)
+    dt, dr = _pose_gaps(poses.cpu().numpy(), golden["seq_solver_poses"])
+    print(f"{what}: on the golden's graph chi2 {chi2:.6f} in {iters} LM iterations (golden "
+          f"{float(golden['seq_chi2']):.6f} in {int(golden['seq_lm_iters'])}, relative gap "
+          f"{rel:.3e}, tol {SOLVER_CHI2_RTOL}); poses {dt:.3e} m, {dr:.3e} rad (tol "
+          f"{GOLDEN_TOL_M}, {GOLDEN_TOL_RAD})")
+    if rel > SOLVER_CHI2_RTOL or dt > GOLDEN_TOL_M or dr > GOLDEN_TOL_RAD:
+        raise AssertionError(f"{what}: leaves the tolerance")
+
+
+def resolve_registration(builder, raws: list, golden: dict) -> dict:
+    """The golden's dense solves solved again by the port from the golden's
+    own seeds, on the same captures stitched with the reference's maps
+    (`builder` holds them: the packages' maps differ on the sensor-tie
+    columns, and a solve moves by millimetres with them, as in phase i's
+    `check_tracked_solves`): `register_pair`'s (from its PbMap pose,
+    nearest and bilinear sampling), the benchmark's dense methods (from
+    identity) and `rig_joint` (raw sensors), `register_sequence`'s edges
+    (from the golden's PbMap poses, identity where PbMap failed).  Returns
+    {"pair": (1, 4, 4), "pair_bilinear": ..., "bench": (5, 4, 4),
+    "seq": (n, 4, 4)} on the host."""
+    from rgbd360_tpu_torch.ops.stitch import rgb_to_gray
+    from rgbd360_tpu_torch.registration.rig_dense import RigDenseAligner, build_rig_pyramid
+
+    cfg = builder.config.dense
+    dev = builder.sensor.device
+    pyrs: dict = {}
+
+    def pyr(i):
+        if i not in pyrs:
+            pyrs[i] = builder.build_with_pyramid(RigFrame.from_raw(raws[i], dev))[1]
+        return pyrs[i]
+
+    def seed(pose):
+        return torch.as_tensor(pose, dtype=torch.float32, device=dev)
+
+    out = {}
+    a, b = REG_PAIR
+    for tag, bilinear in (("pair", False), ("pair_bilinear", True)):
+        al = D.DenseAligner(dataclasses.replace(cfg, bilinear=bilinear))
+        out[tag] = al.align(pyr(b), pyr(a), seed(golden[f"{tag}_pbmap"])).pose[None]
+    a, b = REG_BENCH_PAIR
+    poses = [D.DenseAligner(cfg).align(pyr(b), pyr(a), method=m).pose
+             for m in (D.PHOTO_CONSISTENCY, D.DEPTH_CONSISTENCY, D.PHOTO_DEPTH)]
+    poses.append(D.DenseAligner(dataclasses.replace(cfg, bilinear=True)).align(pyr(b), pyr(a)).pose)
+    rigs = []
+    for i in (a, b):
+        rig = builder.undistort(RigFrame.from_raw(raws[i], dev))
+        rigs.append(build_rig_pyramid(rgb_to_gray(rig.rgb), rig.depth, cfg))
+    poses.append(RigDenseAligner(builder.k, builder.rt, cfg).align(rigs[1], rigs[0]).pose)
+    out["bench"] = torch.stack(poses)
+    eye = np.eye(4, dtype=np.float32)
+    out["seq"] = torch.stack([
+        D.DenseAligner(cfg).align(pyr(int(j)), pyr(int(i)), seed(p if ok else eye)).pose
+        for (i, j), ok, p in zip(golden["seq_pairs"], golden["seq_pb_success"],
+                                 golden["seq_pb_poses"])
+    ])
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_resolved(got: dict, golden: dict, what: str, gate) -> None:
+    """Each re-solved golden solve (`resolve_registration`) within
+    GOLDEN_TOL of the nearest of the golden's jittered solves of it."""
+    gate(_gate_branches, f"{what}: register_pair dense", got["pair"],
+         golden["pair_branch_poses"][:, None])
+    gate(_gate_branches, f"{what}: register_pair dense --bilinear", got["pair_bilinear"],
+         golden["pair_bilinear_branch_poses"][:, None])
+    gate(_gate_branches, f"{what}: benchmark {', '.join(BENCH_DENSE)}", got["bench"],
+         golden["bench_dense_branch_poses"])
+    gate(_gate_branches, f"{what}: register_sequence edges", got["seq"],
+         golden["seq_branch_poses"])
+
+
+@contextlib.contextmanager
+def recorded_graph():
+    """The graph `slam.graph.optimize_pose_graph` is given (its leaves on
+    the host) and the final chi2 it returns (the app prints it and returns
+    the trajectory): yields a dict filled when it runs."""
+    saved, out = graph_ops.optimize_pose_graph, {}
+
+    def record(g, *a, **kw):
+        res = saved(g, *a, **kw)
+        out.update(chi2=float(res[1]), leaves=convert.pose_graph_to_numpy(g))
+        return res
+
+    graph_ops.optimize_pose_graph = record
+    try:
+        yield out
+    finally:
+        graph_ops.optimize_pose_graph = saved
+
+
+def registration_extras(paths: dict, walk: list) -> tuple:
+    """The solves of phase l beside the apps, on the reference's stitch
+    maps (the golden's `extra_*`): `DenseAligner.align` with occlusion 1
+    and 2 on the walk's REG_EXTRA_PAIR, and the pinhole
+    `DenseAligner(intrinsics=K)` on sensor 0's raw 240x320 pair.  Returns
+    (poses (3, 4, 4), the pinhole pyramid's K1/K2 launches)."""
+    from rgbd360_tpu_torch.io.bin_format import read_rig_frame
+    from rgbd360_tpu_torch.ops.stitch import rgb_to_gray
+
+    cfg = synthetic.config()
+    builder = FrameBuilder(load_calibration(paths["calib"] / "Extrinsics", None), cfg)
+    load_reference_maps(builder)
+    raws = [read_rig_frame(walk[i]) for i in REG_EXTRA_PAIR]
+    pyrs = [builder.build_with_pyramid(RigFrame.from_raw(r))[1] for r in raws]
+    aligner = D.DenseAligner(cfg.dense)
+    poses = [aligner.align(pyrs[1], pyrs[0], occlusion=occ).pose for occ in (1, 2)]
+    dev = builder.sensor.device
+    _reset_counts()
+    sensor = [D.build_frame_pyramid(
+        rgb_to_gray(torch.from_numpy(r.rgb[0]).to(dev)),
+        torch.from_numpy(r.depth_mm[0]).to(dev).to(torch.float32) * 0.001,
+        cfg.dense, spherical=False) for r in raws]
+    launches = _counts()
+    poses.append(D.DenseAligner(cfg.dense, intrinsics=builder.k).align(sensor[1], sensor[0]).pose)
+    return torch.stack(poses).cpu().numpy(), launches
+
+
+def check_registration_phase(smi: str) -> None:
+    """Phase l: the registration apps (`register_pair`,
+    `benchmark_registration`, `register_sequence`) on capture files at
+    full size, the occlusion modes and the pinhole solve, the rig pyramid
+    and ICP's host syncs."""
+    import tempfile
+
+    from rgbd360_tpu_torch.apps import benchmark_registration, register_pair, register_sequence
+    from rgbd360_tpu_torch.io.bin_format import read_rig_frame
+    from rgbd360_tpu_torch.ops.pyramid import build_depth_pyramid
+    from rgbd360_tpu_torch.ops.stitch import rgb_to_gray
+    from rgbd360_tpu_torch.registration.icp import GICP, ICPAligner
+    from rgbd360_tpu_torch.registration.rig_dense import build_rig_pyramid
+
+    failed: list = []
+    gate = _gate_collector(failed)
+    golden = dict(np.load(REGISTRATION_GOLDEN))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        paths = synthetic.write_app_inputs(tmp, loop_frames=0)
+        walk = sorted(paths["walk"].glob("sphere_images_*.bin"),
+                      key=lambda p: int(p.stem.rsplit("_", 1)[1]))
+        calib = ["--calib", str(paths["calib"]), "--no-intrinsics"]
+        print(f"registration set-up (calibration directory, {len(walk)} walk capture files): "
+              f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        walls = {}
+        pair = [str(walk[i]) for i in REG_PAIR]
+        for tag, extra in (("pair", ["--out", str(tmp / "pair")]), ("pair_bilinear", ["--bilinear"])):
+            what = f"registration: register_pair --dense {' '.join(extra[:1])}".rstrip()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with recorded_registration(golden_seeds(golden, f"{tag}_pbmap",
+                                                    f"{tag}_pb_success")) as log:
+                rec = register_pair.main(pair + calib + ["--dense"] + extra)
+            walls[what] = time.perf_counter() - t0
+            gate(check_app_launches, _counts(), 2, what)
+            check_register_pair(rec, log, golden, tag, what, gate)
+        gate(check_app_files, tmp / "pair", PAIR_OUT_FILES, "registration: register_pair")
+
+        what = "registration: benchmark_registration"
+        _reset_counts()
+        t0 = time.perf_counter()
+        with recorded_registration() as log:
+            results = benchmark_registration.main(
+                [str(walk[i]) for i in REG_BENCH_PAIR] + calib + ["--repeats", "3"])
+        walls[what] = time.perf_counter() - t0
+        # two sphere pyramids and two rig pyramids
+        gate(check_app_launches, _counts(), 4, what)
+        gate(check_benchmark, results, log, golden, what, gate)
+        bench_ms = {name: float(r[1]) for name, r in results.items()}
+
+        what = "registration: register_sequence"
+        _reset_counts()
+        t0 = time.perf_counter()
+        seeds = golden_seeds(golden, "seq_pb_poses", "seq_pb_success")
+        with recorded_registration(seeds) as log, recorded_graph() as graph:
+            traj, labels = register_sequence.main(
+                [str(paths["walk"])] + calib + ["--window", str(REG_WINDOW), "--out",
+                                                str(tmp / "seq")])
+        walls[what] = time.perf_counter() - t0
+        gate(check_app_launches, _counts(), len(walk), what)
+        gate(check_register_sequence, traj, labels, log, graph, golden, what, gate,
+             torch.device("cuda"))
+        gate(check_app_files, tmp / "seq", SEQ_OUT_FILES, what)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        # the golden's dense solves again, on the reference's stitch maps
+        ref_builder = FrameBuilder(load_calibration(paths["calib"] / "Extrinsics", None),
+                                   synthetic.config())
+        load_reference_maps(ref_builder)
+        t0 = time.perf_counter()
+        resolved = resolve_registration(ref_builder, [read_rig_frame(p) for p in walk], golden)
+        print(f"registration: the golden's {sum(len(v) for v in resolved.values())} dense solves "
+              f"re-solved in {time.perf_counter() - t0:.2f} s")
+        check_resolved(resolved, golden, "registration: re-solved", gate)
+        del ref_builder
+
+        poses, launches = registration_extras(paths, walk)
+        gate(check_app_launches, launches, 2, "registration: pinhole pyramids")
+        gate(_gate_branches, "registration: occlusion 1, occlusion 2, pinhole (sensor 0)",
+             poses, golden["extra_branch_poses"])
+
+        # the rig pyramid: 1 K1 + 4 K2 and no other device op; ICP's loop
+        # reads nothing back
+        builder = FrameBuilder(load_calibration(paths["calib"] / "Extrinsics", None),
+                               synthetic.config())
+        rig = builder.undistort(RigFrame.from_raw(read_rig_frame(walk[0])))
+        gray = rgb_to_gray(rig.rgb)
+        gate(check_pyramid_stage, lambda: build_rig_pyramid(gray, rig.depth, builder.config.dense),
+             builder.config.dense.pyramid_levels, "rig pyramid (8x240x320)")
+        sphere = builder.build(rig)
+        dp = build_depth_pyramid(sphere.sphere_depth, 4)
+        icp = ICPAligner(builder.config.dense, variant=GICP)
+        icp.align(dp, dp)
+        torch.cuda.synchronize()
+        syncs = _count_syncs(lambda: icp.align(dp, dp))
+        print(f"registration: GICP align (4 levels x 10 iterations): {syncs} host syncs "
+              f"(sync debug mode)")
+        if syncs:
+            failed.append(f"the ICP loop synchronized with the host {syncs} times")
+
+        def profiled_icp() -> None:
+            wall, busy, ops, waits, _ = _profile(lambda: icp.align(dp, dp))
+            print(f"registration: GICP align, profiled: {ops} device ops, device busy "
+                  f"{busy:.3f} ms, wall {wall:.3f} ms, idle share {1 - busy / wall:.3f}, "
+                  f"{waits} host waits, on {smi}")
+
+        _DEFERRED.append(profiled_icp)
+
+    for name, wall in walls.items():
+        print(f"{name}: main {wall:.2f} s with its set-up and export, on {smi}")
+    print(f"registration: benchmark_registration ms per call (CUDA-synchronized, mean of 3): "
+          + json.dumps({k: round(v, 3) for k, v in bench_ms.items()}) + f", on {smi}")
+    print(f"registration: peak device memory of the apps {peak:.1f} MiB, on {smi}")
+    if failed:
+        raise AssertionError(f"phase l: {len(failed)} gates failed: " + " | ".join(failed))
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the port.")
-    parser.add_argument("--phases", default="bcdefgijk",
+    parser.add_argument("--phases", default="bcdefgijkl",
                         help="the phases to run (a, the build and h always run); a partial "
                              "run prints no result lines")
     phases = parser.parse_args(argv).phases
@@ -2460,16 +3098,17 @@ def main(argv=None) -> int:
                          ("g", lambda: check_odometry_phase(smi)),
                          ("i", lambda: check_keyframe_phase(smi)),
                          ("j", lambda: check_apps_phase(smi)),
-                         ("k", lambda: check_long_phase(smi))):
+                         ("k", lambda: check_long_phase(smi)),
+                         ("l", lambda: check_registration_phase(smi))):
         if phase in phases:
             t0 = time.perf_counter()
             check()
             print(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for job in _DEFERRED:
+    for job in _DEFERRED_PYRAMIDS + _DEFERRED:
         job()
     print(f"phase h took {time.perf_counter() - t0:.1f} s")
-    if set("bcdefgijk") - set(phases):
+    if set("bcdefgijkl") - set(phases):
         print(f"partial run (phases {phases}): no result lines")
         return 0
 

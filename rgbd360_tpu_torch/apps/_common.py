@@ -1,6 +1,5 @@
 """Shared CLI plumbing for the application entry points (a copy of
-`rgbd360_tpu/apps/_common.py` without `--matcher-ini`, which none of the
-ported apps reads, plus the port's `--device`).
+`rgbd360_tpu/apps/_common.py`, plus the port's `--device`).
 
 `--calib` names the calibration directory; unlike the reference's, it has
 no default (the reference defaults to a path of its own host).
@@ -24,6 +23,12 @@ def add_calib_args(p: argparse.ArgumentParser):
         "--no-intrinsics",
         action="store_true",
         help="skip CLAMS depth undistortion models",
+    )
+    p.add_argument(
+        "--matcher-ini",
+        default=None,
+        help="reference-format configLocaliser INI with the plane-matcher "
+        "thresholds (reference config_files/configLocaliser_*.ini)",
     )
     p.add_argument(
         "--parallax-refine",
@@ -55,6 +60,16 @@ def frame_config(args, config=None):
             sphere=dataclasses.replace(config.sphere, parallax_refine=True),
         )
     return config
+
+
+def matcher_config(args):
+    """MatcherConfig from --matcher-ini when given, else the baked defaults
+    (which equal configLocaliser_sphericalOdometry.ini)."""
+    from rgbd360_tpu_torch.config import MatcherConfig
+
+    if getattr(args, "matcher_ini", None):
+        return MatcherConfig.from_ini(args.matcher_ini)
+    return MatcherConfig()
 
 
 def load_calib(args):

@@ -183,6 +183,13 @@ class FrameBuilder(nn.Module):
             for lvl in range(self.config.dense.pyramid_levels)
         )
 
+    def undistort(self, frame: RigFrame) -> RigFrame:
+        """CLAMS depth undistortion of a raw capture (reference
+        `Frame360::undistort:293`).  Accepts u16 millimetre or f32 metre
+        depth; returns metres."""
+        self._check_device(frame.rgb, frame.depth)
+        return RigFrame(rgb=frame.rgb, depth=self._undistort_depth(frame.depth))
+
     def _undistort_depth(self, depth_raw: torch.Tensor) -> torch.Tensor:
         """dtype normalization (u16 mm -> f32 m, multiplied in f32) and CLAMS
         undistortion of (..., S, H, W) depth."""

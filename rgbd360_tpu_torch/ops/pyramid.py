@@ -127,6 +127,15 @@ def fused_level_down(
     return (a_g @ gray) @ b_g, pyr_down_depth(depth, min_depth, max_depth)
 
 
+def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """[img, pyr_down(img), ...]: `levels` images, one K2 launch per level
+    transition of an even shape."""
+    pyr = [img]
+    for _ in range(levels - 1):
+        pyr.append(pyr_down(pyr[-1]))
+    return pyr
+
+
 def build_depth_pyramid(
     depth: torch.Tensor, levels: int, min_depth: float = 0.3, max_depth: float = 20.0
 ) -> list[torch.Tensor]:

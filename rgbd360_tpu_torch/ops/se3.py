@@ -94,8 +94,11 @@ def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 
 def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([r, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
-    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
+    # the bottom row made on the device (a row built on the host is a
+    # copy that synchronizes with the host)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

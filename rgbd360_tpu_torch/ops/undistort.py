@@ -69,3 +69,12 @@ def undistort_depth_pixeltab(
     fallback = (idx0 < 0) | (idx1 >= nbins) | (c0 < _MIN_COUNT) | (c1 < _MIN_COUNT)
     mult = torch.where(fallback, m_near, m_interp)
     return torch.where(z > 0, z * mult, z)
+
+
+def undistort_depth(depth, multipliers, counts, bin_width, bin_height, bin_depth):
+    """Undistort (..., H, W) f32 metre depth with the (..., nby, nbx, nbins)
+    frustum tables (the reference's name: `precompute_pixel_tables` then
+    `undistort_depth_pixeltab`)."""
+    h, w = depth.shape[-2], depth.shape[-1]
+    tabs = precompute_pixel_tables(multipliers, counts, bin_width, bin_height, h, w)
+    return undistort_depth_pixeltab(depth, *tabs, bin_depth)

@@ -20,15 +20,17 @@ one host sync, which gives exactly the reference's `lax.while_loop`
 semantics (early exit, accept/reject, the iteration counter).
 
 Batches.  The reference vmaps the aligner (the batch pipeline, one source
-against several keyframes, a batch of pose hypotheses); here a leading
-batch axis runs through the pyramid, the sweep and the GN loop.  Either
-side of a batched alignment may be shared: an unbatched pyramid, or one
-with a batch of 1, is broadcast against the other side, never copied.
-The batched GN loop runs while any element is active, and a finished
-element keeps its state, as the vmapped `lax.while_loop` does.
+against several keyframes, a batch of pose hypotheses, the rig's sensors);
+here a leading batch axis runs through the pyramid, the sweep and the GN
+loop.  Either side of a batched alignment may be shared: an unbatched
+pyramid, or one with a batch of 1, is broadcast against the other side,
+never copied.  The batched GN loop runs while any element is active, and a
+finished element keeps its state, as the vmapped `lax.while_loop` does.
 
-Not ported yet (raise NotImplementedError): bilinear target sampling,
-occlusion modes 1 and 2, the pinhole `intrinsics=` path.
+Options, as in the reference: the pinhole path (`DenseAligner(intrinsics=
+K)`, the reference's `alignFrames`), validity-weighted bilinear target
+sampling (`DenseRegConfig.bilinear`) and the occlusion modes 1 (z-buffer)
+and 2 (z-buffer and the dynamic-object mask) of `align`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from rgbd360_tpu_torch.config import DenseRegConfig
 from rgbd360_tpu_torch.ops import camera, pyramid as pyr_ops, se3
+from rgbd360_tpu_torch.utils import metrics
 
 PHOTO_CONSISTENCY = 0
 DEPTH_CONSISTENCY = 1
@@ -196,41 +199,79 @@ def build_frame_pyramid_batch(
 # ------------------------------------------------------------------ sweep
 #
 # The sweep takes one alignment or a batch.  Unbatched: source arrays
-# (H, W) or a flat (K,) salient subset, target pack (H, W, 6), pose (4, 4).
+# (H, W) or a flat (K,) salient subset, target pack (H, W, C), pose (4, 4).
 # Batched: flat source arrays (Bs, N), points (Bs, N, 3), target pack
-# (Bt, H, W, 6) and poses (B, 4, 4), with Bs and Bt each 1 (shared) or B;
+# (Bt, H, W, C) and poses (B, 4, 4), with Bs and Bt each 1 (shared) or B;
 # the statistics then come back per element: (B, 6, 6), (B, 6), (B,).
+# C is 6 (nearest sampling) or 24 (bilinear: the 2x2 tap neighbourhood).
 
 
 def _pack_target(level_trg: dict, bilinear: bool = False, wrap: bool = True):
     """Stack the six target channels into (..., H, W, 6) so each GN sweep
-    does one row gather per pixel (nearest sampling)."""
-    if bilinear:
-        raise NotImplementedError("bilinear target sampling is not ported yet")
-    return torch.stack([level_trg[k] for k in _CHANNELS], dim=-1)
+    does one row gather per pixel.  bilinear=True widens each row to 24
+    channels, the pixel's 2x2 tap neighbourhood [self | right | down |
+    down-right]; `wrap` selects column wraparound (spherical) or edge clamp
+    (pinhole); rows always clamp."""
+    p = torch.stack([level_trg[k] for k in _CHANNELS], dim=-1)
+    if not bilinear:
+        return p
+
+    def right_of(x):  # columns are dim -2 of (..., H, W, C)
+        if wrap:
+            return torch.roll(x, -1, dims=-2)
+        return torch.cat([x[..., 1:, :], x[..., -1:, :]], dim=-2)
+
+    down = torch.cat([p[..., 1:, :, :], p[..., -1:, :, :]], dim=-3)
+    return torch.cat([p, right_of(p), down, right_of(down)], dim=-1)
 
 
 def _src_points(src_depth: torch.Tensor, cfg: DenseRegConfig, intr=None):
-    """Pose-invariant source terms, hoisted out of the GN loop."""
-    if intr is not None:
-        raise NotImplementedError("the pinhole alignment path is not ported yet")
-    pts = camera.sphere_backproject(src_depth)
+    """Pose-invariant source terms, hoisted out of the GN loop: the points
+    of the spherical (intr None) or pinhole (intr (3, 3) K) depth, and
+    their validity."""
+    if intr is None:
+        pts = camera.sphere_backproject(src_depth)
+    else:
+        pts = camera.pinhole_backproject(src_depth, intr)
     valid_src = (src_depth > cfg.min_depth) & (src_depth < cfg.max_depth)
     return pts, valid_src
 
 
-def _warp_terms(pose, pts, valid_src, h, w, intr=None):
-    """Transform all source points and project them to the target's
-    spherical pixel grid (nearest pixel; `rho` is the radial range)."""
-    if intr is not None:
-        raise NotImplementedError("the pinhole alignment path is not ported yet")
+def _warp_terms(pose, pts, valid_src, h, w, intr=None, taps: bool = False):
+    """Transform all source points and project them to the target pixel
+    grid (nearest pixel).  intr None: the spherical projection, `rho` the
+    radial range; intr (3, 3) K: the pinhole projection, `rho` the
+    z-depth.  With `taps`, also the bilinear floor cell (r0, c0) and the
+    in-cell fractions."""
     tp = pts @ pose[..., :3, :3].mT + pose[..., None, :3, 3]
-    rc, rho = camera.sphere_project(tp, h, w)
     # round half to even, then truncating casts, as the reference
-    r_i = torch.round(rc[..., 0]).to(torch.int32)
-    c_i = torch.remainder(torch.round(rc[..., 1]).to(torch.int32), w)
-    inb = (r_i >= 0) & (r_i < h) & valid_src
-    return dict(tp=tp, rho=rho, r=torch.clamp(r_i, 0, h - 1), c=c_i, visible=inb)
+    if intr is None:
+        rc, rho = camera.sphere_project(tp, h, w)
+        rf, cf = rc[..., 0], torch.remainder(rc[..., 1], w)
+        r_i = torch.round(rc[..., 0]).to(torch.int32)
+        c_i = torch.remainder(torch.round(rc[..., 1]).to(torch.int32), w)
+        inb = (r_i >= 0) & (r_i < h) & valid_src
+    else:
+        uv, rho = camera.pinhole_project(tp, intr)
+        rf, cf = uv[..., 1], uv[..., 0]
+        r_i = torch.round(rf).to(torch.int32)
+        c_i = torch.round(cf).to(torch.int32)
+        inb = (r_i >= 0) & (r_i < h) & (c_i >= 0) & (c_i < w) & (rho > 1e-6) & valid_src
+        c_i = torch.clamp(c_i, 0, w - 1)
+    out = dict(tp=tp, rho=rho, r=torch.clamp(r_i, 0, h - 1), c=c_i, visible=inb)
+    if taps:
+        # floor cell and fractions; where the floor coordinate was clipped
+        # into the grid the fraction collapses to 0, so the blend does not
+        # move the sample a pixel inward of the nearest sampler's
+        r0f, c0f = torch.floor(rf), torch.floor(cf)
+        frac_r = torch.where(r0f < 0, 0.0, torch.clamp(rf - r0f, 0.0, 1.0))
+        frac_c = torch.where(c0f < 0, 0.0, torch.clamp(cf - c0f, 0.0, 1.0))
+        out.update(
+            r0=torch.clamp(r0f, 0, h - 1).to(torch.int32),
+            c0=torch.clamp(c0f, 0, w - 1).to(torch.int32),
+            frac_r=frac_r, frac_c=frac_c,
+        )
+    return out
 
 
 def _huber(err: torch.Tensor, scale) -> torch.Tensor:
@@ -242,31 +283,93 @@ def _huber(err: torch.Tensor, scale) -> torch.Tensor:
     return torch.where(a < scale, 1.0, w)
 
 
+def _gather_rows(trg_pack: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """Rows of the target pack at flat pixel indices `lin` (one gather of
+    all channels); a per-element target (Bt > 1) is offset into its own
+    image."""
+    h, w, nch = trg_pack.shape[-3:]
+    lin = lin.long()
+    if trg_pack.ndim == 4 and trg_pack.shape[0] > 1:
+        off = torch.arange(trg_pack.shape[0], device=lin.device) * (h * w)
+        lin = lin + off[:, None]
+    return trg_pack.reshape(-1, nch)[lin]
+
+
+def _bilinear_sample(trg_pack: torch.Tensor, wt: dict, cfg) -> torch.Tensor:
+    """Validity-weighted bilinear sample of the 24-channel pack: all six
+    channels share one weight set from the taps' depth validity; the blend
+    falls back to the nearest tap where the valid weight is low or the
+    live taps straddle a depth discontinuity (`bilerp_depth_spread`).
+    Dropped taps are selected out (torch.where), never multiplied by 0."""
+    w = trg_pack.shape[-2]
+    tv24 = _gather_rows(trg_pack, wt["r0"] * w + wt["c0"])
+    taps = [tv24[..., 6 * i : 6 * i + 6] for i in range(4)]
+    fr, fc = wt["frac_r"], wt["frac_c"]
+    bw = [(1 - fr) * (1 - fc), (1 - fr) * fc, fr * (1 - fc), fr * fc]
+    dtap = [t[..., 1] for t in taps]
+    ew = [torch.where(d > 0, b, 0.0) for b, d in zip(bw, dtap)]
+    s = ew[0] + ew[1] + ew[2] + ew[3]
+    live = [e > 1e-6 for e in ew]  # the taps that carry weight
+    hi = [torch.where(lv, d, -math.inf) for lv, d in zip(live, dtap)]
+    lo = [torch.where(lv, d, math.inf) for lv, d in zip(live, dtap)]
+    dmax = torch.maximum(torch.maximum(hi[0], hi[1]), torch.maximum(hi[2], hi[3]))
+    dmin = torch.minimum(torch.minimum(lo[0], lo[1]), torch.minimum(lo[2], lo[3]))
+    spread_ok = (dmax - dmin) <= torch.clamp(cfg.bilerp_depth_spread * dmax, min=0.05)
+    blend_ok = (s > 0.5) & spread_ok
+    terms = [torch.where((e > 0)[..., None], e[..., None] * t, 0.0) for e, t in zip(ew, taps)]
+    blended = (terms[0] + terms[1] + terms[2] + terms[3]) / torch.clamp(s, min=1e-6)[..., None]
+    left, top = (fc < 0.5)[..., None], (fr < 0.5)[..., None]
+    near = torch.where(
+        top, torch.where(left, taps[0], taps[1]), torch.where(left, taps[2], taps[3])
+    )
+    return torch.where(blend_ok[..., None], blended, near)
+
+
+def _occluded(wt: dict, h: int, w: int, batch: tuple) -> torch.Tensor:
+    """The z-buffer test of occlusion modes 1 and 2: a visible point that
+    lies more than 5 cm behind the nearest point projecting to its target
+    pixel is occluded.  The z-buffer is a scatter-min over the NEAREST
+    pixel index (in both sampling modes), one buffer per element of a
+    batch; a min is order-independent, so the result is deterministic."""
+    lin = (wt["r"] * w + wt["c"]).long()
+    n = 1
+    if batch:
+        n = batch[0]
+        lin = lin + (torch.arange(n, device=lin.device) * (h * w))[:, None]
+    rho = wt["rho"].expand(lin.shape)
+    rho_w = torch.where(wt["visible"], rho, math.inf)
+    zbuf = torch.full((n * h * w,), math.inf, device=rho.device).scatter_reduce(
+        0, lin.reshape(-1), rho_w.reshape(-1), "amin"
+    )
+    return rho > zbuf[lin] + 0.05
+
+
 def _residual_terms(
     src_gray, pts, valid_src, trg_pack, pose, cfg, method, occlusion=0, intr=None
 ):
-    """Per-pixel weighted residuals and masks for one pyramid level."""
-    if occlusion != 0:
-        raise NotImplementedError("occlusion modes 1 and 2 are not ported yet")
-    if trg_pack.shape[-1] != 6:
-        raise NotImplementedError("bilinear target sampling is not ported yet")
-    h, w = trg_pack.shape[-3], trg_pack.shape[-2]
-    wt = _warp_terms(pose, pts, valid_src, h, w, intr)
-    lin = (wt["r"] * w + wt["c"]).long()
-    if trg_pack.ndim == 4 and trg_pack.shape[0] > 1:
-        # one target per element: offset each element into its own image
-        off = torch.arange(trg_pack.shape[0], device=lin.device) * (h * w)
-        lin = lin + off[:, None]
-    tvp = trg_pack.reshape(-1, 6)[lin]
+    """Per-pixel weighted residuals and masks for one pyramid level.
+    occlusion=1 adds the z-buffer test (the reference's `_sphereOcc1` /
+    `_Occ1` variants); occlusion=2 also drops depth residuals beyond the
+    0.3 m outlier threshold (moving objects) and reports them as
+    `dynamic_mask`."""
+    h, w, nch = trg_pack.shape[-3:]
+    wt = _warp_terms(pose, pts, valid_src, h, w, intr, taps=nch == 24)
+    if nch == 24:
+        tvp = _bilinear_sample(trg_pack, wt, cfg)
+    else:
+        tvp = _gather_rows(trg_pack, wt["r"] * w + wt["c"])
     tv = [tvp[..., k] for k in range(6)]
+    visible = wt["visible"]
+    if occlusion >= 1:
+        visible = visible & ~_occluded(wt, h, w, pose.shape[:-2])
 
-    out = dict(visible=wt["visible"], tp=wt["tp"], rho=wt["rho"])
+    out = dict(visible=visible, tp=wt["tp"], rho=wt["rho"])
     if method in (PHOTO_CONSISTENCY, PHOTO_DEPTH):
         gx, gy = tv[2], tv[3]
         salient = (torch.abs(gx) >= cfg.sal_intensity) | (torch.abs(gy) >= cfg.sal_intensity)
         diff = tv[0] - src_gray
         w_p = _huber(diff, cfg.std_photo) / cfg.std_photo
-        m = wt["visible"] & salient
+        m = visible & salient
         out.update(
             photo_res=torch.where(m, w_p * diff, 0.0),
             photo_w=torch.where(m, w_p, 0.0),
@@ -281,7 +384,13 @@ def _residual_terms(
         diff = d2 - wt["rho"]
         s = cfg.std_depth * torch.clamp(d2, min=1e-3)
         w_d = _huber(diff, s) / s
-        m = wt["visible"] & salient & has_d
+        m = visible & salient & has_d
+        if occlusion >= 2:
+            # dynamic-object / outlier rejection (thresDepthOutliers = 0.3,
+            # reference `alignFrames360:4525`)
+            dynamic = torch.abs(diff) > 0.3
+            m = m & ~dynamic
+            out["dynamic_mask"] = dynamic & visible & has_d
         out.update(
             depth_res=torch.where(m, w_d * diff, 0.0),
             depth_w=torch.where(m, w_d, 0.0),
@@ -315,6 +424,30 @@ def _proj_jacobian(tp: torch.Tensor, w: int) -> torch.Tensor:
     )
 
 
+def _proj_jacobian_pinhole(tp: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """J of (col=u, row=v) with respect to the 3D point for a pinhole
+    camera (reference `calcHessGrad:776`), (..., 2, 3)."""
+    x, y, z = tp[..., 0], tp[..., 1], tp[..., 2]
+    z_s = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+    z_inv = 1.0 / z_s
+    fx, fy = intr[0, 0], intr[1, 1]
+    zero = torch.zeros_like(x)
+    row_u = torch.stack([fx * z_inv, zero, -fx * x * z_inv * z_inv], dim=-1)
+    row_v = torch.stack([zero, fy * z_inv, -fy * y * z_inv * z_inv], dim=-1)
+    return torch.stack([row_u, row_v], dim=-2)
+
+
+def _hess_grad(level_src, level_trg, pose, cfg, method, occlusion=0, intr=None):
+    """The 6x6 normal equations of one level from its source and target
+    level dicts (`_src_points` and `_pack_target`, then the sweep)."""
+    pts, valid_src = _src_points(level_src["depth"], cfg, intr)
+    return _hess_grad_packed(
+        level_src["gray"], pts, valid_src,
+        _pack_target(level_trg, cfg.bilinear, wrap=intr is None), pose, cfg,
+        method, occlusion, intr,
+    )
+
+
 def _hess_grad_packed(
     src_gray, pts, valid_src, trg_pack, pose, cfg, method, occlusion=0, intr=None
 ):
@@ -324,7 +457,10 @@ def _hess_grad_packed(
         src_gray, pts, valid_src, trg_pack, pose, cfg, method, occlusion, intr
     )
     tp = t["tp"]
-    jproj = _proj_jacobian(tp, trg_pack.shape[-2])  # (..., 2, 3)
+    if intr is None:
+        jproj = _proj_jacobian(tp, trg_pack.shape[-2])  # (..., 2, 3)
+    else:
+        jproj = _proj_jacobian_pinhole(tp, intr)
     batch = pose.shape[:-2]
 
     def flat(x):  # (*batch, pixels...) -> (*batch, N)
@@ -356,8 +492,13 @@ def _hess_grad_packed(
         accumulate("photo", image_term(t["photo_gx"], t["photo_gy"]))
     if "depth_res" in t:
         a = image_term(t["depth_gx"], t["depth_gy"])
-        rho_inv = 1.0 / torch.clamp(t["rho"], min=1e-9)
-        accumulate("depth", a - tp * rho_inv[..., None])  # -d|p|/dp term
+        if intr is None:
+            rho_inv = 1.0 / torch.clamp(t["rho"], min=1e-9)
+            a = a - tp * rho_inv[..., None]  # -d|p|/dp term
+        else:
+            # the pinhole depth measure is z: -dz/dp = -e_z (reference `:991`)
+            a = torch.cat([a[..., :2], a[..., 2:] - 1.0], dim=-1)
+        accumulate("depth", a)
 
     stats["visible"] = torch.sum(flat(t["visible"]), dim=-1)
     # mean weighted residual sqrt(sum(w r)^2 / n): H, g and error from ONE sweep
@@ -401,7 +542,21 @@ def _gn_level(
     """One pyramid level of Gauss-Newton with accept-if-improved stepping
     (a rejected step exits the level).  Returns (pose, err, iters, ill,
     hessian, stats), where hessian/stats come from the last ACCEPTED
-    evaluation: at exit they describe the final pose.
+    evaluation: at exit they describe the final pose."""
+    def sweep(cand):
+        return _hess_grad_packed(
+            src_gray, pts, valid_src, trg_pack, cand, cfg, method, occlusion, intr
+        )
+
+    return _gn_loop(
+        sweep, pose, ill, cfg, max_iters, _stats0(method, pose.shape[:-2], pose.device)
+    )
+
+
+def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
+    """The GN loop of `_gn_level` over any sweep: `sweep(pose)` gives
+    (hessian, gradient, stats) and `st_best` holds the statistics kept
+    (their starting values).
 
     The state lives on the device; each step reads the loop condition with
     one host sync (`it` starts at -1: the first sweep only evaluates).  For
@@ -417,16 +572,13 @@ def _gn_level(
     diff = torch.ones(batch, device=dev)
     ill = ill.expand(batch)
     h_best = torch.zeros(batch + (6, 6), device=dev)
-    st_best = _stats0(method, batch, dev)
 
     def active():
         return (it < max_iters) & (upd > cfg.tol_update) & (diff > cfg.tol_residual) & ~ill
 
     run = active()
     while bool(run.any()):
-        hess, grad, stats = _hess_grad_packed(
-            src_gray, pts, valid_src, trg_pack, cand, cfg, method, occlusion, intr
-        )
+        hess, grad, stats = sweep(cand)
         err = stats["mean_err"]
         bad, update = _solve_step(hess, grad)
         accept = ((err_best - err) > cfg.tol_residual) & ~bad
@@ -452,24 +604,37 @@ def _as_batch(pyr: FramePyramid) -> FramePyramid:
     return pyr if is_batch(pyr) else _map_levels(pyr, lambda x: x[None])
 
 
-def _flat_points(depth: torch.Tensor, gray: torch.Tensor, cfg):
+def _flat_points(depth: torch.Tensor, gray: torch.Tensor, cfg, intr=None):
     """Dense source terms of (B, H, W) levels, flattened to (B, H*W)."""
-    pts, valid = _src_points(depth, cfg)
+    pts, valid = _src_points(depth, cfg, intr)
     return gray.flatten(-2), pts.flatten(-3, -2), valid.flatten(-2)
 
 
+def scale_intrinsics(k: torch.Tensor, lvl: int) -> torch.Tensor:
+    """Pinhole K at pyramid level `lvl` (reference `scaleCameraParams`: fx,
+    fy, cx, cy all halve per level, `RegisterPhotoICP.h:487-495`)."""
+    s = 0.5**lvl
+    k = torch.as_tensor(k, dtype=torch.float32)
+    out = torch.zeros((3, 3), dtype=torch.float32, device=k.device)
+    out[0, 0], out[0, 2] = k[0, 0] * s, k[0, 2] * s
+    out[1, 1], out[1, 2] = k[1, 1] * s, k[1, 2] * s
+    out[2, 2] = 1.0
+    return out
+
+
 class DenseAligner:
-    """Coarse-to-fine dense spherical alignment engine (the reference's
-    `RegisterPhotoICP::alignFrames360`)."""
+    """Coarse-to-fine dense alignment engine: the reference's
+    `RegisterPhotoICP::alignFrames360` (spherical, the default) or
+    `alignFrames` (pinhole: pass `intrinsics=K` for one RGB-D camera
+    pair)."""
 
     def __init__(self, cfg: DenseRegConfig = DenseRegConfig(), intrinsics=None):
-        if intrinsics is not None:
-            raise NotImplementedError("the pinhole alignment path is not ported yet")
-        if cfg.bilinear:
-            raise NotImplementedError("bilinear target sampling is not ported yet")
         self.cfg = cfg
-        # the tracker reads it to choose the spherical yaw rescue
-        self.intrinsics = intrinsics
+        # (3, 3) float32 K or None; the tracker reads it to choose the
+        # spherical yaw rescue
+        self.intrinsics = (
+            None if intrinsics is None else torch.as_tensor(intrinsics, dtype=torch.float32)
+        )
 
     def align(
         self,
@@ -480,30 +645,43 @@ class DenseAligner:
         occlusion: int = 0,
     ) -> AlignResult:
         """T_trg<-src by coarse-to-fine GN; init_pose seeds it (identity by
-        default).  occlusion must be 0 (modes 1 and 2 are not ported).
-        Batched pyramids or (B, 4, 4) seeds give a batched result (see
-        `_align_impl`)."""
-        if occlusion != 0:
-            raise NotImplementedError("occlusion modes 1 and 2 are not ported yet")
+        default).  occlusion: 0 plain, 1 the z-buffer occlusion test, 2 the
+        test and dynamic-object rejection (the reference's
+        `alignFrames360(..., occlusion)` modes).  Batched pyramids or
+        (B, 4, 4) seeds give a batched result (see `_align_impl`)."""
+        if occlusion not in (0, 1, 2):
+            raise ValueError(f"occlusion must be 0, 1 or 2, not {occlusion}")
         dev = src.gray[0].device
         if init_pose is None:
             init_pose = torch.eye(4, device=dev)
         init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
         return self._align_impl(src, trg, init_pose, method, occlusion)
 
+    def _intr(self, lvl: int, device):
+        """K at pyramid level `lvl` on `device`, or None (spherical)."""
+        if self.intrinsics is None:
+            return None
+        return scale_intrinsics(self.intrinsics.to(device), lvl)
+
+    def _pack(self, trg: FramePyramid, lvl: int, intr):
+        return _pack_target(self._level_dicts(trg, lvl), self.cfg.bilinear, wrap=intr is None)
+
     def _coarsest(self, src: FramePyramid, trg: FramePyramid):
-        """(source gray, points, valid, target pack) at the coarsest level."""
+        """(source gray, points, valid, target pack) at the coarsest level,
+        and its K (None on the sphere)."""
         lvl = self.cfg.pyramid_levels - 1
         src, trg = _as_batch(src), _as_batch(trg)
-        g, pts, valid = _flat_points(src.depth[lvl], src.gray[lvl], self.cfg)
-        return g, pts, valid, _pack_target(self._level_dicts(trg, lvl))
+        intr = self._intr(lvl, src.gray[0].device)
+        g, pts, valid = _flat_points(src.depth[lvl], src.gray[lvl], self.cfg, intr)
+        return (g, pts, valid, self._pack(trg, lvl, intr)), intr
 
     def coarse_errors(self, src, trg, poses, method: int = PHOTO_DEPTH) -> torch.Tensor:
         """(N,) mean residual at the COARSEST pyramid level for a batch of
         candidate poses (N, 4, 4): one batched sweep, used to rank rotation
         hypotheses before a full coarse-to-fine solve."""
         poses = torch.as_tensor(poses, dtype=torch.float32, device=src.gray[0].device)
-        _, _, stats = _hess_grad_packed(*self._coarsest(src, trg), poses, self.cfg, method)
+        args, intr = self._coarsest(src, trg)
+        _, _, stats = _hess_grad_packed(*args, poses, self.cfg, method, 0, intr)
         return stats["mean_err"]
 
     def coarse_align(
@@ -513,13 +691,13 @@ class DenseAligner:
         pyramid level: `iters` plain GN steps each (no accept test, no host
         sync; an ill-posed step does not move), then (refined poses
         (N, 4, 4), post-alignment errors (N,))."""
-        args = self._coarsest(src, trg)
+        args, intr = self._coarsest(src, trg)
         pose = torch.as_tensor(poses, dtype=torch.float32, device=src.gray[0].device)
         for _ in range(iters):
-            hess, grad, _ = _hess_grad_packed(*args, pose, self.cfg, method)
+            hess, grad, _ = _hess_grad_packed(*args, pose, self.cfg, method, 0, intr)
             bad, upd = _solve_step(hess, grad)
             pose = se3.se3_exp(_where(bad, torch.zeros_like(upd), upd)) @ pose
-        _, _, stats = _hess_grad_packed(*args, pose, self.cfg, method)
+        _, _, stats = _hess_grad_packed(*args, pose, self.cfg, method, 0, intr)
         return pose, stats["mean_err"]
 
     @staticmethod
@@ -547,17 +725,24 @@ class DenseAligner:
         tiles = score[..., : k * tile].unflatten(-1, (k, tile))
         return torch.arange(k, device=score.device) * tile + torch.argmax(tiles, dim=-1)
 
-    def _salient_subset(self, src: FramePyramid, lvl: int, k: int):
+    def _salient_subset(self, src: FramePyramid, lvl: int, k: int, intr=None):
         """(gray (..., k), points (..., k, 3), valid (..., k)) of the salient
-        source pixels, gathered per frame; the rays are computed at the
-        selected pixels only."""
+        source pixels, gathered per frame; the rays (or the pinhole
+        backprojection, with `intr`) are computed at the selected pixels
+        only."""
         cfg = self.cfg
         idx = self._salient_indices(src, lvl, k)
         h_l, w_l = src.depth[lvl].shape[-2:]
         g_s = torch.gather(src.gray[lvl].flatten(-2), -1, idx)
         d_s = torch.gather(src.depth[lvl].flatten(-2), -1, idx)
         valid = (d_s > cfg.min_depth) & (d_s < cfg.max_depth)
-        pts = camera.sphere_rays_at(idx // w_l, idx % w_l, h_l, w_l) * d_s[..., None]
+        r_s, c_s = idx // w_l, idx % w_l
+        if intr is None:
+            pts = camera.sphere_rays_at(r_s, c_s, h_l, w_l) * d_s[..., None]
+        else:
+            xn = (c_s.to(torch.float32) - intr[0, 2]) / intr[0, 0]
+            yn = (r_s.to(torch.float32) - intr[1, 2]) / intr[1, 1]
+            pts = torch.stack([xn * d_s, yn * d_s, d_s], dim=-1)
         return g_s, pts, valid
 
     def _align_impl(self, src, trg, init_pose, method, occlusion=0):
@@ -581,7 +766,8 @@ class DenseAligner:
         iters = []
 
         for lvl in reversed(range(cfg.pyramid_levels)):
-            trg_pack = _pack_target(self._level_dicts(trg, lvl))
+            intr = self._intr(lvl, pose.device)
+            trg_pack = self._pack(trg, lvl, intr)
             h_l, w_l = src.gray[lvl].shape[-2:]
             # salient sweeps at levels whose pixel count exceeds twice the
             # budget; level 2 keeps a 1/4-density budget (see the reference)
@@ -589,13 +775,13 @@ class DenseAligner:
             if lvl == 2:
                 k_lvl = h_l * w_l // 4
             if cfg.salient_pixels > 0 and lvl <= 2 and h_l * w_l > 2 * k_lvl and k_lvl > 0:
-                src_gray, pts, valid_src = self._salient_subset(src, lvl, k_lvl)
+                src_gray, pts, valid_src = self._salient_subset(src, lvl, k_lvl, intr)
             else:
-                src_gray, pts, valid_src = _flat_points(src.depth[lvl], src.gray[lvl], cfg)
+                src_gray, pts, valid_src = _flat_points(src.depth[lvl], src.gray[lvl], cfg, intr)
 
             pose, err, n_it, ill, hess_lvl, stats_lvl = _gn_level(
                 src_gray, pts, valid_src, trg_pack, pose, ill, cfg, method,
-                occlusion, None, cfg.max_iters_per_level,
+                occlusion, intr, cfg.max_iters_per_level,
             )
             iters.append(torch.clamp(n_it, min=0))
             if lvl == 0:
@@ -606,11 +792,11 @@ class DenseAligner:
             # dense polish: full-sweep GN steps at the finest level after
             # the thinned solve; its Hessian/statistics describe the FULL
             # image and replace the thinned ones
-            src_gray, pts, valid_src = _flat_points(src.depth[0], src.gray[0], cfg)
+            intr = self._intr(0, pose.device)
+            src_gray, pts, valid_src = _flat_points(src.depth[0], src.gray[0], cfg, intr)
             pose, err, _, ill, hess_out, stats = _gn_level(
-                src_gray, pts, valid_src,
-                _pack_target(self._level_dicts(trg, 0)), pose, ill, cfg,
-                method, occlusion, None, cfg.polish_iters,
+                src_gray, pts, valid_src, self._pack(trg, 0, intr), pose, ill, cfg,
+                method, occlusion, intr, cfg.polish_iters,
             )
             size = src_gray.shape[-1]
 
@@ -660,3 +846,9 @@ def batch_align_targets(aligner, src_pyr, trg_pyrs, seeds) -> AlignResult:
     host."""
     res = batch_align_targets_dispatch(aligner, src_pyr, trg_pyrs, seeds)
     return AlignResult(**{k: v.cpu() for k, v in vars(res).items()})
+
+
+def entropy_from_hessian(hess: torch.Tensor) -> torch.Tensor:
+    """Differential entropy of the pose estimate (Kerl IROS'13; reference
+    `RegisterPhotoICP::calcEntropy` / `RegisterRGBD360.h:230`)."""
+    return metrics.entropy(hess)

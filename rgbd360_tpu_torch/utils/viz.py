@@ -40,6 +40,15 @@ def save_png(path: str | Path, arr: np.ndarray) -> None:
     Path(path).write_bytes(png)
 
 
+def depth_to_gray(depth: np.ndarray, max_depth: float = 6.0) -> np.ndarray:
+    """Depth (m) -> displayable 0..255 grayscale."""
+    return np.clip(np.asarray(depth) / max_depth * 255.0, 0, 255)
+
+
+def bgr_to_rgb(img: np.ndarray) -> np.ndarray:
+    return np.asarray(img)[..., ::-1]
+
+
 def save_ply(
     path: str | Path,
     xyz: np.ndarray,

@@ -19,9 +19,12 @@ ROOT = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
     "rgbd360_tpu_torch",
     "rgbd360_tpu_torch.apps._common",
+    "rgbd360_tpu_torch.apps.benchmark_registration",
     "rgbd360_tpu_torch.apps.grabber",
     "rgbd360_tpu_torch.apps.kf_slam",
     "rgbd360_tpu_torch.apps.odometry",
+    "rgbd360_tpu_torch.apps.register_pair",
+    "rgbd360_tpu_torch.apps.register_sequence",
     "rgbd360_tpu_torch.calibration.spec",
     "rgbd360_tpu_torch.config",
     "rgbd360_tpu_torch.convert",
@@ -42,7 +45,9 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.ops.stitch",
     "rgbd360_tpu_torch.ops.undistort",
     "rgbd360_tpu_torch.registration.dense",
+    "rgbd360_tpu_torch.registration.icp",
     "rgbd360_tpu_torch.registration.planes",
+    "rgbd360_tpu_torch.registration.rig_dense",
     "rgbd360_tpu_torch.slam.graph",
     "rgbd360_tpu_torch.slam.graph_backend",
     "rgbd360_tpu_torch.slam.loop_closure",

@@ -137,13 +137,27 @@ def test_salient_align_with_polish(pair):
 
 
 def test_unported_options_raise(pair):
-    _, _, tsrc, ttrg, _ = pair
-    with pytest.raises(NotImplementedError):
-        TD.DenseAligner(convert.config_from_reference(DenseRegConfig(bilinear=True)))
-    with pytest.raises(NotImplementedError):
-        TD.DenseAligner(TCFG, intrinsics=np.eye(3))
-    aligner = TD.DenseAligner(TCFG)
-    with pytest.raises(NotImplementedError):
-        aligner.align(tsrc, ttrg, occlusion=1)
-    with pytest.raises(NotImplementedError):
-        TD._pack_target({}, bilinear=True)
+    """The options that raised NotImplementedError before they were ported
+    (bilinear target sampling, occlusion modes 1 and 2) now hold against
+    the reference on the pair: the 24-channel pack bit for bit, and each
+    option's whole alignment with the same iteration counts and the pose
+    within 1e-4 (the sweeps' ulp differences through a few GN steps, as
+    in `test_salient_align_with_polish`).  The pinhole path has its own
+    file, `test_torch_pinhole_dense.py`."""
+    import dataclasses
+
+    src, trg, tsrc, ttrg, _ = pair
+    for wrap in (True, False):
+        jp = JD._pack_target({f: getattr(trg, f)[0] for f in FIELDS}, True, wrap)
+        tp = TD._pack_target({f: getattr(ttrg, f)[0] for f in FIELDS}, True, wrap)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    for bilinear, occlusion in ((True, 0), (False, 1), (False, 2)):
+        cfg = dataclasses.replace(CFG, bilinear=bilinear)
+        rj = JD.DenseAligner(cfg).align(src, trg, occlusion=occlusion)
+        rt = TD.DenseAligner(convert.config_from_reference(cfg)).align(
+            tsrc, ttrg, occlusion=occlusion)
+        what = f"bilinear={bilinear} occlusion={occlusion}"
+        np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters), err_msg=what)
+        np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-4, err_msg=what)
+        np.testing.assert_allclose(float(rt.error), float(rj.error), rtol=1e-3, err_msg=what)
+        assert bool(rt.ill_posed) == bool(rj.ill_posed), what

@@ -92,11 +92,18 @@ def test_forced_fallback_reaches_the_yaw_rescue():
 
 def test_dense_aligner_keeps_its_intrinsics():
     """The tracker reads `aligner.intrinsics` to choose the spherical yaw
-    rescue; the port's aligner used to lack the attribute."""
+    rescue; the port's aligner used to lack the attribute.  A pinhole
+    aligner (`intrinsics=K`, which raised before the pinhole path was
+    ported) keeps the reference's K, as float32."""
     aligner = TD.DenseAligner(_config().dense)
     assert aligner.intrinsics is None
-    with pytest.raises(NotImplementedError, match="pinhole"):
-        TD.DenseAligner(_config().dense, intrinsics=np.eye(3))
+    k = synthetic.calibration(_config().rig).k
+    from rgbd360_tpu import config as jconfig
+
+    ref = JD.DenseAligner(convert.config_to_reference(_config().dense, jconfig), intrinsics=k)
+    got = TD.DenseAligner(_config().dense, intrinsics=k)
+    assert got.intrinsics.dtype == torch.float32
+    np.testing.assert_array_equal(got.intrinsics.numpy(), np.asarray(ref.intrinsics, np.float32))
 
 
 def test_make_state_from_sphere_matches_reference():

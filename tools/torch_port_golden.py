@@ -72,8 +72,23 @@ only the files in `rgbd360_tpu_torch/data/`:
   every 2), with synchronous and deferred events; a run that raises is
   recorded as `long_*_raised`.
 
+* `registration_golden.npz` (`--registration-only`), the reference's
+  registration apps over the calibration directory and the walk's 6
+  captures (`synthetic.write_app_inputs`, `--no-intrinsics`), the files
+  the smoke's phase l writes: `register_pair --dense --out` and `--dense
+  --bilinear` on captures REG_PAIR (`pair_*`, `pair_bilinear_*`),
+  `benchmark_registration` on REG_BENCH_PAIR (`bench_*`) and
+  `register_sequence --window 2 --out` (`seq_*`, with the graph it solved
+  and its solve, recorded by wrapping `optimize_pose_graph`), every PbMap
+  result and every dense solve recorded by wrapping the classes' methods
+  (`recorded_solves`), each dense solve again from REG_JITTERS jittered
+  seeds (`*_branch_poses`); and beside the apps (`extra_*`) the occlusion
+  modes 1 and 2 on the walk's REG_EXTRA_PAIR and a pinhole solve on sensor
+  0's raw pair.
+
     JAX_PLATFORMS=cpu python tools/torch_port_golden.py \
-        [--batch-only | --odometry-only | --keyframe-only | --apps-only]
+        [--batch-only | --odometry-only | --keyframe-only | --apps-only |
+         --registration-only]
 """
 
 from __future__ import annotations
@@ -527,13 +542,17 @@ def keyframe_jax(subsample: int = 1, pyramid_levels: int = 5, config=None,
 
 @contextlib.contextmanager
 def reference_apps(cfg):
-    """The reference's apps (`rgbd360_tpu.apps.{odometry,kf_slam}.main`)
-    run at the port configuration `cfg`: for the duration, the reference's
-    `default_config` returns `cfg`'s twin and the apps' calibration loader
-    gives the rig's own pinhole intrinsics (it assumes the full-size rig).
-    The reference package is not edited."""
+    """The reference's apps (`rgbd360_tpu.apps.{odometry,kf_slam,
+    register_pair,benchmark_registration,register_sequence}.main`) run at
+    the port configuration `cfg`: for the duration, the reference's
+    `default_config` (and the one its `FrameBuilder` falls back on, which
+    the registration apps build without a config) returns `cfg`'s twin and
+    the apps' calibration loader gives the rig's own pinhole intrinsics (it
+    assumes the full-size rig).  The reference package is not edited."""
     from rgbd360_tpu import config as ref_config
-    from rgbd360_tpu.apps import kf_slam, odometry
+    from rgbd360_tpu.apps import (benchmark_registration, kf_slam, odometry, register_pair,
+                                  register_sequence)
+    from rgbd360_tpu.core import frame as ref_frame
     from rgbd360_tpu.io.calib import load_calibration
 
     ref_cfg = reference_inputs(cfg)[0]
@@ -541,13 +560,18 @@ def reference_apps(cfg):
     def load_calib(args):
         return load_calibration(pathlib.Path(args.calib) / "Extrinsics", None, rig=ref_cfg.rig)
 
-    saved = ref_config.default_config, kf_slam.load_calib, odometry.load_calib
-    ref_config.default_config = lambda: ref_cfg
-    kf_slam.load_calib = odometry.load_calib = load_calib
+    apps = (kf_slam, odometry, register_pair, benchmark_registration, register_sequence)
+    saved = (ref_config.default_config, ref_frame.default_config,
+             [app.load_calib for app in apps])
+    ref_config.default_config = ref_frame.default_config = lambda: ref_cfg
+    for app in apps:
+        app.load_calib = load_calib
     try:
         yield
     finally:
-        ref_config.default_config, kf_slam.load_calib, odometry.load_calib = saved
+        ref_config.default_config, ref_frame.default_config = saved[:2]
+        for app, fn in zip(apps, saved[2]):
+            app.load_calib = fn
 
 
 def apps_odometry_jax(paths: dict, cfg, keyframe: bool = False) -> np.ndarray:
@@ -688,6 +712,186 @@ def long_jax(subsample: int = 1, pyramid_levels: int = 5, n_frames: int = LOOP_F
     return out
 
 
+# -------------------------------------------------------- the registration
+
+# the captures, window and methods of phase l, defined once in the smoke
+from chip_smoke import (  # noqa: E402
+    BENCH_DENSE, BENCH_ICP, REG_BENCH_PAIR, REG_EXTRA_PAIR, REG_PAIR, REG_WINDOW,
+)
+
+REG_JITTERS = TRACK_VERIFY_JITTERS  # unjittered, and +-JITTER_M along each axis
+BENCH_METHODS = ("pbmap",) + BENCH_DENSE[:4] + BENCH_ICP + ("rig_joint",)
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Record every `DenseAligner.align` and `RigDenseAligner.align` call of
+    the reference (the classes' methods are wrapped for the duration; the
+    package is not edited) and every `PlaneRegistration.register` result:
+    yields {"dense": [(aligner, src, trg, seed, method, occlusion, pose,
+    ill_posed)], "pbmap": [(success, n_matches, pose)]}, a call repeated on
+    the same inputs (the benchmark's repeats) kept once."""
+    from rgbd360_tpu.registration.planes import PlaneRegistration
+    from rgbd360_tpu.registration.rig_dense import RigDenseAligner
+
+    log = {"dense": [], "pbmap": []}
+    seen = set()
+    saved = [(c, c.align) for c in (D.DenseAligner, RigDenseAligner)]
+    register = PlaneRegistration.register
+
+    def wrap(align):
+        def recorded(self, src, trg, init_pose=None, method=D.PHOTO_DEPTH, occlusion=0):
+            res = align(self, src, trg, init_pose, method, occlusion)
+            seed = np.eye(4, dtype=np.float32) if init_pose is None else np.asarray(init_pose)
+            key = (id(self), id(src), id(trg), method, occlusion, seed.tobytes())
+            if key not in seen:
+                seen.add(key)
+                log["dense"].append((self, src, trg, seed, method, occlusion,
+                                     np.asarray(res.pose), bool(res.ill_posed)))
+            return res
+        return recorded
+
+    def recorded_register(self, *a, **kw):
+        res = register(self, *a, **kw)
+        log["pbmap"].append((bool(res.success), int(res.n_matches), np.asarray(res.pose)))
+        return res
+
+    for cls, align in saved:
+        cls.align = wrap(align)
+    PlaneRegistration.register = recorded_register
+    try:
+        yield log
+    finally:
+        for cls, align in saved:
+            cls.align = align
+        PlaneRegistration.register = register
+
+
+def solve_branches(calls, n_jitters: int = REG_JITTERS) -> np.ndarray:
+    """(P, n, 4, 4): each recorded dense solve again from its seed moved by
+    `jitters()[:n_jitters]` (a solve that leaves a level through the
+    accept-if-improved exit has several solutions within reach of
+    rounding, PERF.md)."""
+    return np.asarray([
+        [np.asarray(al.align(src, trg, jnp.asarray(_jittered(seed[None], j)[0]), method,
+                             occ).pose) for al, src, trg, seed, method, occ, *_ in calls]
+        for j in jitters()[:n_jitters]
+    ], np.float32).reshape(n_jitters, len(calls), 4, 4)
+
+
+def seq_pairs(n: int, window: int = REG_WINDOW) -> list:
+    """register_sequence's pairs (i, j) in the order it registers them."""
+    return [(j - back, j) for j in range(1, n) for back in range(1, min(window, j) + 1)]
+
+
+def registration_extras_jax(paths: dict, cfg, n_jitters: int = REG_JITTERS) -> dict:
+    """The phase-l solves outside the apps: `DenseAligner.align` with
+    occlusion 1 and 2 on the walk's REG_EXTRA_PAIR (spheres built by the
+    reference builder), and the pinhole `DenseAligner(intrinsics=K)` on
+    sensor 0's raw pair (gray from the capture, depth in metres, 5 levels
+    from the rig's 240x320), each with its jittered-seed branches."""
+    from rgbd360_tpu.io.bin_format import read_rig_frame
+    from rgbd360_tpu.ops.stitch import rgb_to_gray
+
+    builder = reference_builder(cfg)
+    raws = sorted(paths["walk"].glob("sphere_images_*.bin"),
+                  key=lambda p: int(p.stem.rsplit("_", 1)[1]))
+    raws = [read_rig_frame(raws[i]) for i in REG_EXTRA_PAIR]
+    pyrs = [builder.build_with_pyramid(RigFrame(jnp.asarray(r.rgb), jnp.asarray(r.depth_mm)))[1]
+            for r in raws]
+    sensor = [D.build_frame_pyramid(rgb_to_gray(jnp.asarray(r.rgb[0])),
+                                    jnp.asarray(r.depth_mm[0]).astype(jnp.float32) * 0.001,
+                                    builder.config.dense, spherical=False) for r in raws]
+    sphere_al = D.DenseAligner(builder.config.dense)
+    pin_al = D.DenseAligner(builder.config.dense, intrinsics=builder.k)
+    with recorded_solves() as log:
+        for occ in (1, 2):
+            sphere_al.align(pyrs[1], pyrs[0], occlusion=occ)
+        pin_al.align(sensor[1], sensor[0])
+    calls = log["dense"]
+    return {"extra_poses": np.asarray([c[6] for c in calls], np.float32),
+            "extra_branch_poses": solve_branches(calls, n_jitters)}
+
+
+def registration_jax(paths: dict, subsample: int = 1, pyramid_levels: int = 5,
+                     n_jitters: int = REG_JITTERS) -> dict:
+    """The reference's registration apps over the files phase l writes
+    (`register_pair --dense --out` and `--dense --bilinear` on REG_PAIR,
+    `benchmark_registration` on REG_BENCH_PAIR, `register_sequence
+    --window REG_WINDOW --out` over the walk), their PbMap results and
+    every dense solve with its jittered-seed branches (see the module
+    doc), and the solves beside them (`registration_extras_jax`).  The
+    benchmark runs with `--repeats 1`: its results do not depend on the
+    count."""
+    import tempfile
+
+    from rgbd360_tpu.apps import benchmark_registration, register_pair, register_sequence
+    from rgbd360_tpu.slam import graph as G
+
+    cfg = synthetic.config(subsample, pyramid_levels)
+    walk = sorted(paths["walk"].glob("sphere_images_*.bin"),
+                  key=lambda p: int(p.stem.rsplit("_", 1)[1]))
+    calib = ["--calib", str(paths["calib"]), "--no-intrinsics"]
+    out = {}
+    with reference_apps(cfg), tempfile.TemporaryDirectory() as tmp:
+        pair = [str(walk[i]) for i in REG_PAIR]
+        for tag, extra in (("pair", ["--out", tmp]), ("pair_bilinear", ["--bilinear"])):
+            with recorded_solves() as log:
+                rec = register_pair.main(pair + calib + ["--dense"] + extra)
+            (success, n_matches, _), = log["pbmap"]
+            out.update({f"{tag}_pbmap": np.asarray(rec["pbmap"], np.float32),
+                        f"{tag}_icp": np.asarray(rec["icp"], np.float32),
+                        f"{tag}_icp_rms": np.float32(rec["icp_rms"]),
+                        f"{tag}_dense": np.asarray(rec["dense"], np.float32),
+                        f"{tag}_matches": np.int64(n_matches),
+                        f"{tag}_pb_success": np.bool_(success),
+                        f"{tag}_branch_poses": solve_branches(log["dense"], n_jitters)[:, 0]})
+
+        bench = [str(walk[i]) for i in REG_BENCH_PAIR]
+        with recorded_solves() as log:
+            res = benchmark_registration.main(bench + calib + ["--repeats", "1"])
+        for name in BENCH_METHODS:
+            out[f"bench_{name}"] = np.asarray(res[name][0], np.float32)
+        out["bench_pb_success"], out["bench_pb_matches"] = log["pbmap"][0][:2]
+        # the dense solves in BENCH_DENSE order (the app's order)
+        out["bench_dense_branch_poses"] = solve_branches(log["dense"], n_jitters)
+
+        chi2 = {}
+        optimize = G.optimize_pose_graph
+
+        def recorded_optimize(g, *a, **kw):
+            res = optimize(g, *a, **kw)
+            chi2.update(chi2=np.float32(res[1]), iters=np.int64(res[2]),
+                        poses=np.asarray(res[0], np.float32),
+                        graph={f.name: np.asarray(getattr(g, f.name))
+                               for f in dataclasses.fields(g)})
+            return res
+
+        G.optimize_pose_graph = recorded_optimize
+        try:
+            with recorded_solves() as log:
+                traj, labels = register_sequence.main(
+                    [str(paths["walk"])] + calib + ["--window", str(REG_WINDOW), "--out", tmp])
+        finally:
+            G.optimize_pose_graph = optimize
+        pairs = seq_pairs(len(walk))
+        ill = np.array([c[7] for c in log["dense"]])
+        out.update(
+            seq_trajectory=np.asarray(traj, np.float32), seq_labels=np.asarray(labels),
+            seq_pairs=np.asarray(pairs, np.int64), seq_ill_posed=ill,
+            seq_edges=np.asarray([p for p, b in zip(pairs, ill) if not b], np.int64),
+            seq_poses=np.asarray([c[6] for c in log["dense"]], np.float32),
+            seq_pb_success=np.array([s for s, _, _ in log["pbmap"]]),
+            seq_pb_matches=np.array([m for _, m, _ in log["pbmap"]], np.int64),
+            seq_pb_poses=np.asarray([p for _, _, p in log["pbmap"]], np.float32),
+            seq_chi2=chi2["chi2"], seq_lm_iters=chi2["iters"], seq_solver_poses=chi2["poses"],
+            **{f"seq_graph_{k}": v for k, v in chi2["graph"].items()},
+            seq_branch_poses=solve_branches(log["dense"], n_jitters),
+        )
+    out.update(registration_extras_jax(paths, cfg, n_jitters))
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=6, help="frames of the slice")
@@ -701,8 +905,26 @@ def main(argv=None) -> None:
                       help="write only keyframe_golden.npz")
     only.add_argument("--apps-only", action="store_true",
                       help="write only apps_golden.npz")
+    only.add_argument("--registration-only", action="store_true",
+                      help="write only registration_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if args.registration_only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            res = registration_jax(synthetic.write_app_inputs(tmp, loop_frames=0))
+        np.savez_compressed(out_dir / "registration_golden.npz", **res)
+        print(f"wrote {out_dir / 'registration_golden.npz'}")
+        for k in ("pair_matches", "pair_pb_success", "bench_pb_matches", "bench_pb_success",
+                  "seq_edges", "seq_labels", "seq_chi2", "seq_lm_iters"):
+            print(k, np.asarray(res[k]).tolist())
+        for k in sorted(res):
+            if k.endswith("branch_poses"):
+                b = res[k]
+                spread = np.linalg.norm(b[..., :3, 3] - b[:1, ..., :3, 3], axis=-1).max(axis=0)
+                print(f"{k}: {b.shape[0]} branches, spread (m) {np.round(spread, 6).tolist()}")
+        return
     if args.apps_only:
         import tempfile
 

@@ -149,6 +149,26 @@ l. the pair-registration apps on capture files at full size (the
    wall, the phase's peak memory.  Phases b and c hold K1 and K2 at the
    rig's and the pinhole solve's shapes (8x240x320 ... 8x15x20 and
    1x240x320 ... 1x15x20) too;
+m. the extras at full size (the calibration directory, the loop's 24 and
+   the walk's 6 captures), against `data/extras_golden.npz` (the
+   reference's own functions and apps over the same inputs,
+   `tools/torch_port_golden.py --extras-only`): the parallax-refined stitch
+   of walk capture 0 (on the reference's maps, the refined depth and maps
+   at the golden's seeded pixel sample; on the port's own, the radial
+   error against the analytic octagon under 0.2x the plain sphere's and
+   under 1 cm, coverage within 0.02); `apps.odometry.main --parallax-refine`
+   over the walk (1 K1 + 4 K2 per frame, steps within the golden
+   tolerance of the golden's or of its jittered re-solves); `calibrate`'s
+   nine sub-commands (`collect` over the loop, `solve` from perturbed
+   extrinsics, `pair`, `eval`, `fim`, `online --sensors 0 1`, `tof` on a
+   rawlog of ToF range images, `laser` on a ray-cast 2D scan, `viz`), and
+   `solve` / `pair` on the golden's own control planes; `load_rawlog` on
+   a rawlog of 2 walk captures with gray images (`--to-bin` read back, the
+   sphere export); `view_frame --planes --cloud`, its .pcd with the
+   .pbmap, `--sequence --video` (the GIF); `labelize apply / propagate /
+   stats`; a depth-only stereo sphere written, read back and tracked
+   through `make_state_from_sphere`; RANSAC on the golden's index triples.
+   Printed: each app's wall, the phase's time and peak memory;
 h. the measurements that need `torch.profiler` (the kernels' device times
    of phases b and c, the profiled pyramid of phase d, the profiled frames
    of phases g and i), put off until every host-clock timing is taken: once a process has profiled once
@@ -164,7 +184,7 @@ held finite in every field of every slot, padding included, and phase a
 probes the card's `eigh` on degenerate 3x3 matrices (`probe_degenerate_eigh`).
 
 The last two lines are a JSON line of per-kernel results (launch counts
-summed over the gated runs of phases d-l, each counted from 0; times,
+summed over the gated runs of phases d-m, each counted from 0; times,
 bytes, bounds and the library call's time at the main path's level-0
 shapes, and per shape under `shapes`) and the contract line
 `{"ok": true, "device": {...}}`.
@@ -3053,11 +3073,779 @@ def check_registration_phase(smi: str) -> None:
         raise AssertionError(f"phase l: {len(failed)} gates failed: " + " | ".join(failed))
 
 
+# ------------------------------------------------------------- phase m
+#
+# The extras on the card at full size: the parallax-refined stitch, the
+# odometry app with `--parallax-refine`, the calibration suite, the rawlog,
+# PbMap and stereo I/O, the viewer and the labeling app, held to
+# `data/extras_golden.npz` (`tools/torch_port_golden.py --extras-only`:
+# the reference's own functions and apps over the same inputs).  The
+# scenes below are plain numpy, shared by the golden tool, the CPU tests
+# and the phase, so all three see the very same inputs.
+EXTRAS_GOLDEN = DATA / "extras_golden.npz"
+STITCH_SAMPLE = 2048  # sphere pixels of the refined stitch's golden sample
+LABEL_FRAME = 1  # the walk's `sphere_images_1.bin`, labelled by `labelize apply`
+LABELS = {"0": "floor", "1": "ceiling", "2": {"name": "wall", "level": "object"}}
+CAL_PAIR = (0, 1)  # `calibrate pair`, `fim` and `online --sensors`
+LASER_RT = (0.05, -0.03, 0.08, 0.02, -0.04, 0.03)  # twist (v, w) of the laser on the rig
+TOF_RT = (0.10, -0.04, 0.02, 0.05, -0.3, 0.15)  # twist of ToF camera B in camera A
+TOF_SHAPE = (60, 80)  # the ToF range images
+RANSAC_INLIERS, RANSAC_OUTLIERS, RANSAC_HYPOTHESES = 900, 300, 512
+
+
+def se3_exp_np(xi) -> np.ndarray:
+    """float64 SE(3) exponential of a twist (v, w) (the laser solver's)."""
+    from rgbd360_tpu_torch.calibration.laser import _exp_se3
+
+    return _exp_se3(np.asarray(xi, np.float64))
+
+
+def perturbed_rt(rt: np.ndarray, seed: int = 3) -> np.ndarray:
+    """The extrinsics (S, 4, 4) with every sensor but 0 moved by a seeded
+    twist (1 cm, 0.02 rad standard deviations): `calibrate solve`'s seed."""
+    rng = np.random.default_rng(seed)
+    out = np.array(rt, np.float64)
+    for s in range(1, len(out)):
+        out[s] = out[s] @ se3_exp_np(np.concatenate([rng.normal(0, 0.01, 3),
+                                                     rng.normal(0, 0.02, 3)]))
+    return out
+
+
+def octagon_planes(radius: float = synthetic.ROOM_RADIUS, half_height: float = 1.7):
+    """(normals (10, 3), ds (10,)) of the octagon room seen from the walk's
+    first pose, n . x + d = 0 in the rig frame: 8 walls and the two caps
+    (`apps.grabber._octagon_hit`'s room)."""
+    phis = (np.arange(8) + 0.5) * (np.pi / 4)
+    walls = np.stack([np.zeros(8), np.sin(phis), np.cos(phis)], axis=-1)
+    normals = np.vstack([walls, [[1.0, 0, 0], [-1.0, 0, 0]]])
+    return normals, np.concatenate([np.full(8, -radius), [-half_height, -half_height]])
+
+
+def laser_observations(normals: np.ndarray, ds: np.ndarray, n_rays: int = 361) -> list:
+    """One 2D range scan ray-cast against the planes from the laser pose
+    LASER_RT (`calibrate laser`'s input; the reference's
+    `tests/test_apps.py::test_calibrate_laser_app` scene)."""
+    from rgbd360_tpu_torch.io.rawlog import Obs2DRangeScan
+
+    rt = se3_exp_np(LASER_RT)
+    aperture = float(np.pi)
+    ang = -aperture / 2 + np.arange(n_rays) * (aperture / (n_rays - 1))
+    dirs = np.stack([np.cos(ang), np.sin(ang), np.zeros(n_rays)], -1) @ rt[:3, :3].T
+    denom = dirs @ normals.T
+    s = -(rt[:3, 3] @ normals.T + ds)[None, :] / np.where(np.abs(denom) > 1e-6, denom, 1e-6)
+    s = np.where((np.abs(denom) > 0.1) & (s > 0.3), s, np.inf)
+    rng_m = s.min(axis=1)
+    hit = np.isfinite(rng_m)
+    return [Obs2DRangeScan(sensor_label="LASER", aperture=aperture, right_to_left=True,
+                           max_range=20.0, ranges=np.where(hit, rng_m, 0.0).astype(np.float32),
+                           validity=hit.astype(np.uint8))]
+
+
+def tof_observations(n_frames: int = 8, seed: int = 0) -> list:
+    """Paired range images of a tilted wall from ToF cameras A (`KINECT`)
+    and B (`CAM3D`, at TOF_RT in A), with gray intensity images, one pair
+    per frame (`calibrate tof`'s input, the reference's
+    `ToFCalibrator.cpp` protocol); cameras use `calibration.tof`'s default
+    pinhole for TOF_SHAPE."""
+    from rgbd360_tpu_torch.io.rawlog import Obs3DRangeScan, unix_to_mrpt_timestamp
+
+    rng = np.random.default_rng(seed)
+    h, w = TOF_SHAPE
+    f = 525.0 * w / 640.0
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(u - (w - 1) / 2.0) / f, (v - (h - 1) / 2.0) / f, np.ones_like(u)], -1)
+    rt = se3_exp_np(TOF_RT)
+    gray = (np.add.outer(np.arange(h), np.arange(w)) * 2 % 256).astype(np.uint8)
+    obs = []
+    for k in range(n_frames):
+        n_a = np.array([*rng.uniform(-0.5, 0.5, 2), -1.0])
+        n_a /= np.linalg.norm(n_a)
+        d_a = rng.uniform(1.5, 3.0)
+        n_b, d_b = n_a @ rt[:3, :3], d_a + n_a @ rt[:3, 3]
+        ts = unix_to_mrpt_timestamp(1000.0 + k)
+        for label, n, d in (("KINECT", n_a, d_a), ("CAM3D", n_b, d_b)):
+            z = -d / (rays @ n)
+            z = z + rng.normal(0, 0.003, z.shape)
+            z = np.where((z > 0.3) & (z < 10.0), z, 0.0).astype(np.float32)
+            obs.append(Obs3DRangeScan(sensor_label=label, timestamp=ts, range_image=z,
+                                      intensity_image=gray))
+    return obs
+
+
+def ransac_scene(seed: int = 3) -> np.ndarray:
+    """(N, 3) float32: RANSAC_INLIERS noisy points on a tilted plane
+    (n . x + 1.7 = 0) and RANSAC_OUTLIERS uniform ones (the reference's
+    `tests/test_calibration.py` scene, smaller)."""
+    rng = np.random.default_rng(seed)
+    n = np.array([0.2, -0.5, 0.84])
+    n /= np.linalg.norm(n)
+    basis = np.linalg.svd(n[None, :])[2][1:]
+    pts_in = (-1.7 * n + rng.uniform(-2, 2, (RANSAC_INLIERS, 2)) @ basis
+              + rng.normal(0, 0.004, (RANSAC_INLIERS, 3)))
+    return np.vstack([pts_in, rng.uniform(-4, 4, (RANSAC_OUTLIERS, 3))]).astype(np.float32)
+
+
+def gray_observations(raws: list, t0: float = 1e9) -> list:
+    """Rawlog observations of rig captures with GRAY intensity images (a
+    gray `CImage` rides raw, with no JPEG codec): per capture k and sensor
+    i, `RGBD<i+1>` with the construction-spec pose, the depth in metres and
+    the BGR->gray of its image, stamped t0 + k seconds."""
+    from rgbd360_tpu_torch.calibration.spec import construction_spec_rt
+    from rgbd360_tpu_torch.io.rawlog import Obs3DRangeScan, unix_to_mrpt_timestamp
+
+    obs = []
+    for k, raw in enumerate(raws):
+        poses = construction_spec_rt(raw.rgb.shape[0])
+        bgr = raw.rgb.astype(np.float32)
+        gray = np.round(0.114 * bgr[..., 0] + 0.587 * bgr[..., 1]
+                        + 0.299 * bgr[..., 2]).astype(np.uint8)
+        obs += [Obs3DRangeScan(sensor_label=f"RGBD{i + 1}",
+                               timestamp=unix_to_mrpt_timestamp(t0 + k),
+                               sensor_pose=poses[i],
+                               range_image=raw.depth_mm[i].astype(np.float32) * 0.001,
+                               intensity_image=gray[i])
+                for i in range(raw.rgb.shape[0])]
+    return obs
+
+
+def extras_calibration(cfg):
+    """The synthetic rig's calibration without its CLAMS model (the
+    extrinsics of the apps' calibration directory, `--no-intrinsics`)."""
+    return dataclasses.replace(synthetic.calibration(cfg.rig), clams_multipliers=None,
+                               clams_counts=None)
+
+
+def write_tof_laser_inputs(root: Path) -> dict:
+    """`calibrate tof`'s and `laser`'s inputs under `root`: `tof.rawlog`,
+    `laser.rawlog`, `planes.json` (the octagon's planes) and `guess.txt`
+    (identity)."""
+    root.mkdir(parents=True, exist_ok=True)
+    from rgbd360_tpu_torch.io.rawlog import write_rawlog
+
+    normals, ds = octagon_planes()
+    paths = {k: root / v for k, v in (("tof", "tof.rawlog"), ("laser", "laser.rawlog"),
+                                       ("planes", "planes.json"), ("guess", "guess.txt"))}
+    write_rawlog(paths["tof"], tof_observations())
+    write_rawlog(paths["laser"], laser_observations(normals, ds))
+    paths["planes"].write_text(json.dumps([{"n": n.tolist(), "d": float(d)}
+                                           for n, d in zip(normals, ds)]))
+    np.savetxt(paths["guess"], np.eye(4))
+    return paths
+
+
+def write_perturbed_calibration(root: Path, rig) -> np.ndarray:
+    """A calibration directory `root/Extrinsics` of the rig's extrinsics
+    moved by `perturbed_rt`; returns them."""
+    rt = perturbed_rt(synthetic.calibration(rig).rt)
+    ext = root / "Extrinsics"
+    ext.mkdir(parents=True, exist_ok=True)
+    for s, m in enumerate(rt, start=1):
+        np.savetxt(ext / f"Rt_0{s}.txt", m, fmt="%.9g")
+    return rt
+
+
+
+# The refined stitch on the reference's maps against the golden's sample:
+# the two packages compute each ray's sensor coordinates with different
+# rounding (PyTorch rounds the 3x3 products without fused multiply-adds,
+# and its sin/cos differ by ulps between the CPU and the card), so a
+# truncated index can land on the neighbouring integer: measured on the
+# CPU 1 pixel of 614,400 at full size (1.6e-6), none at the tests' size.
+STITCH_FLIP_FRAC = 1e-3
+# The refined depth where both packages sampled the same pixel: one
+# square root of sums of products of the same gathered depth, ulps apart
+# (measured 2.1e-7 relative on the CPU).
+STITCH_DEPTH_RTOL = 1e-5
+# The reference's own gates on the refined sphere (`tests/test_frame.py::
+# test_parallax_refined_stitch_accuracy`), at full size.
+STITCH_GAIN, STITCH_ERR_M, STITCH_COV = 0.2, 0.01, 0.02
+# The control planes of `calibrate collect`: the same per-sensor clouds
+# (no stitch map enters) segmented by both packages; a matched plane's
+# normal and offset differ by the segmentation's rounding (measured on the
+# CPU at subsample 2: 5.5e-4 rad, 2.3e-3 m; phase g's plane normal
+# tolerance), its weight (the smaller inlier count) by a few pixels.
+CP_NORMAL_TOL, CP_D_TOL, CP_W_RTOL = PLANE_TOL_RAD, 5e-3, 0.02
+# A calibration solved by the port against the reference's on the same
+# control planes (float32 LM with the same steps): measured 7.4e-6 on the
+# CPU at the tests' size.
+CAL_SAME_TOL = (1e-4, 1e-4)
+# ... and on the port's own control planes (CP_* apart): the solve moves
+# with its inputs.
+CAL_OWN_TOL = (5e-3, 5e-3)
+# The rig recovered from a perturbed seed against the true (construction
+# spec) rig: the reference's rotation bound (`tests/test_calibration.py:
+# 94-95`, 0.01 rad); its translation bound there is 0.02 m, but on this
+# scene both packages recover the ring's translations only to 1.4-3.1 cm
+# (the matched control planes' offsets disagree by 5-8 mm per pair even
+# under the true extrinsics, `calibrate eval`, and the ring chains them;
+# measured on the CPU at full size, the golden 3.12e-2 m), so the bound is
+# CAL_TRUTH_M, and the golden's own gap is printed beside it.
+CAL_TRUTH_RAD, CAL_TRUTH_M = 0.01, 0.05
+# `calibrate tof`: the port's RANSAC draws its own hypotheses, the
+# least-squares refit then lands both on the same inliers' plane.
+TOF_TOL = (2e-3, 2e-3)
+# The laser and ToF extrinsics against their truth: the reference's bounds
+# (`tests/test_apps.py:307-308`, `tests/test_calibration.py:288-289`).
+LASER_TRUTH = (0.03, 0.02)
+TOF_TRUTH = (0.01, np.radians(0.5))
+# RANSAC on the golden's index triples: the winning plane within float32
+# rounding of the (N, H) product and the cross product; the vote counts
+# and inlier masks may differ on points within rounding of the threshold.
+RANSAC_TOL, RANSAC_FLIPS = 1e-5, 2
+LABEL_LEVELS = ("plane", "object", "context")
+
+
+def _twist_gap(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """(translation m, rotation rad) of inv(a) @ b for single 4x4s."""
+    return _pose_gaps(np.asarray(a)[None], np.asarray(b)[None])
+
+
+def _relative_gaps(rt: np.ndarray, ref: np.ndarray) -> tuple[float, float]:
+    """Largest gap over sensors of the sensor-0-relative extrinsics."""
+    rel = lambda r: np.linalg.inv(r[0])[None] @ r  # noqa: E731
+    return _pose_gaps(rel(np.asarray(rt, np.float64)), rel(np.asarray(ref, np.float64)))
+
+
+def refined_builder(builder: FrameBuilder) -> FrameBuilder:
+    """`builder` with `sphere.parallax_refine` on (its buffers shared)."""
+    import copy
+
+    out = copy.copy(builder)
+    out.config = builder.config.replace(sphere=dataclasses.replace(
+        builder.config.sphere, parallax_refine=True))
+    return out
+
+
+def check_refined_sample(builder: FrameBuilder, raw, golden: dict, what: str) -> dict:
+    """The refined build (`FrameBuilder.build` with `parallax_refine`) and
+    `refine_stitch_maps` of one capture on `builder`'s maps (the
+    reference's) against the golden's sample; returns the gaps."""
+    from rgbd360_tpu_torch.ops import stitch as stitch_ops
+
+    frame = RigFrame.from_raw(raw, builder.sensor.device)
+    sphere = refined_builder(builder).build(frame)
+    plain = builder.build(frame)
+    rig = builder.config.rig
+    maps = stitch_ops.refine_stitch_maps(builder.maps, plain.sphere_depth, builder.rt_inv,
+                                         builder.k, rig.height, rig.width)
+    idx = torch.as_tensor(golden["stitch_sample"].astype(np.int64), device=builder.sensor.device)
+    u = maps.u.reshape(-1)[idx].cpu().numpy()
+    v = maps.v.reshape(-1)[idx].cpu().numpy()
+    d = sphere.sphere_depth.reshape(-1)[idx].cpu().numpy()
+    same = (u == golden["stitch_u"]) & (v == golden["stitch_v"])
+    flips = float(np.mean(~same))
+    ref_d = golden["stitch_depth"]
+    rel = np.abs(d - ref_d)[same] / np.maximum(np.abs(ref_d[same]), 1e-6)
+    zero_ok = bool(np.array_equal(d[same] > 0, ref_d[same] > 0))
+    worst = float(rel.max()) if rel.size else 0.0
+    print(f"{what}: refined maps differ from the golden's on {int((~same).sum())} of "
+          f"{len(same)} sampled pixels ({flips:.2e}, tol {STITCH_FLIP_FRAC}); refined depth "
+          f"elsewhere {worst:.2e} relative (tol {STITCH_DEPTH_RTOL}), same zeros {zero_ok}")
+    if flips > STITCH_FLIP_FRAC or worst > STITCH_DEPTH_RTOL or not zero_ok:
+        raise AssertionError(f"{what}: the refined stitch leaves the golden's tolerance")
+    return {"flips": flips, "depth_rtol": worst}
+
+
+def octagon_errors(builder: FrameBuilder, raw) -> dict:
+    """Mean absolute radial error against the analytic octagon (walk
+    capture 0's pose) and coverage of the plain and the refined sphere of
+    `raw` on `builder` (its own maps)."""
+    from rgbd360_tpu_torch.apps.grabber import _octagon_hit
+    from rgbd360_tpu_torch.ops import camera
+
+    frame = RigFrame.from_raw(raw, builder.sensor.device)
+    out = {}
+    for tag, b in (("plain", builder), ("refined", refined_builder(builder))):
+        d = b.build(frame).sphere_depth
+        rays = camera.sphere_rays(*d.shape).numpy()
+        gt = _octagon_hit(np.zeros(3), rays, synthetic.ROOM_RADIUS)
+        d = d.cpu().numpy()
+        m = (d > 0) & np.isfinite(gt)
+        out[f"err_{tag}"] = float(np.mean(np.abs(d - gt)[m]))
+        out[f"cov_{tag}"] = float(np.mean(d > 0))
+    return out
+
+
+def check_octagon(got: dict, golden: dict, what: str, absolute: bool = True) -> None:
+    """The refined sphere against the analytic room: under STITCH_GAIN of
+    the plain sphere's error and under STITCH_ERR_M, coverage within
+    STITCH_COV (`absolute`: the reference's full-size gates); and each
+    error within 5% of the golden's (the reference on its own maps)."""
+    e_p, e_r = got["err_plain"], got["err_refined"]
+    print(f"{what}: mean radial error vs the analytic octagon plain {e_p:.5f} m, refined "
+          f"{e_r:.5f} m (golden {float(golden['stitch_err_plain']):.5f}, "
+          f"{float(golden['stitch_err_refined']):.5f}); coverage {got['cov_plain']:.4f}, "
+          f"{got['cov_refined']:.4f}")
+    if absolute and not (e_r < STITCH_GAIN * e_p and e_r < STITCH_ERR_M
+                         and abs(got["cov_plain"] - got["cov_refined"]) < STITCH_COV):
+        raise AssertionError(f"{what}: the refined sphere misses the reference's gates")
+    for tag in ("plain", "refined"):
+        ref = float(golden[f"stitch_err_{tag}"])
+        if abs(got[f"err_{tag}"] - ref) > 0.05 * ref:
+            raise AssertionError(f"{what}: {tag} error {got[f'err_{tag}']} is not the golden's {ref}")
+
+
+def check_refined_steps(traj: np.ndarray, golden: dict, what: str) -> None:
+    """The odometry app's steps with `--parallax-refine`: each within the
+    golden tolerance of the golden's step or of the nearest of its solve's
+    jittered re-solves (phase i's rule)."""
+    traj = np.asarray(traj, np.float64)
+    steps = np.linalg.inv(traj[:-1]) @ traj[1:]
+    cands = np.concatenate([golden["odo_steps"][None], golden["odo_branch_steps"]])
+    worst, picks = (0.0, 0.0), []
+    for i in range(len(steps)):
+        gaps = [_twist_gap(steps[i], c[i]) for c in cands]
+        j = min(range(len(gaps)), key=lambda b: gaps[b][0] / GOLDEN_TOL_M + gaps[b][1] / GOLDEN_TOL_RAD)
+        picks.append(j)
+        worst = (max(worst[0], gaps[j][0]), max(worst[1], gaps[j][1]))
+    print(f"{what}: axial steps {np.round(steps[:, 0, 3], 5).tolist()} (golden "
+          f"{np.round(golden['odo_steps'][:, 0, 3], 5).tolist()}); nearest of the golden's step "
+          f"(0) and its {len(cands) - 1} jittered solves {picks}: {worst[0]:.3e} m, "
+          f"{worst[1]:.3e} rad (tol {GOLDEN_TOL_M}, {GOLDEN_TOL_RAD})")
+    if np.abs(steps[:, 0, 3] - STEP_M).max() > STEP_TOL_M:
+        raise AssertionError(f"{what}: axial steps leave {STEP_M} +- {STEP_TOL_M} m")
+    if worst[0] > GOLDEN_TOL_M or worst[1] > GOLDEN_TOL_RAD:
+        raise AssertionError(f"{what}: steps leave the golden's tolerance")
+
+
+def _assigned(rows: np.ndarray, golden: np.ndarray) -> np.ndarray:
+    """`rows` reordered within each sensor pair to the golden's rows they
+    are closest to (a one-to-one assignment on the normals and offsets):
+    a frame's greedy matcher may take equally good plane pairs in another
+    order, and the consensus trim keeps the accumulated order."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = np.empty_like(golden)
+    for key in {tuple(r) for r in golden[:, :2].tolist()}:
+        gi = np.flatnonzero((golden[:, :2] == key).all(axis=1))
+        ri = np.flatnonzero((rows[:, :2] == key).all(axis=1))
+        cost = np.abs(rows[ri][:, None, 2:10] - golden[gi][None, :, 2:10]).sum(axis=-1)
+        r, c = linear_sum_assignment(cost)
+        out[gi[c]] = rows[ri[r]]
+    return out
+
+
+def check_control_planes(rows: np.ndarray, golden: np.ndarray, what: str) -> None:
+    """`calibrate collect`'s control planes (rows a b n_a d_a n_b d_b w)
+    against the golden's: the same count per pair, then each golden row
+    against the port's row assigned to it (`_assigned`): normals within
+    CP_NORMAL_TOL rad, offsets within CP_D_TOL m, weights within
+    CP_W_RTOL."""
+    rows, golden = np.atleast_2d(rows), np.atleast_2d(golden)
+    count = lambda r: Counter(map(tuple, r[:, :2].astype(int).tolist()))  # noqa: E731
+    got_c, ref_c = count(rows), count(golden)
+    print(f"{what}: {len(rows)} control planes, per pair {sorted(got_c.items())} (golden "
+          f"{len(golden)}, {sorted(ref_c.items())})")
+    if got_c != ref_c:
+        raise AssertionError(f"{what}: the pairs' control-plane counts differ from the golden's")
+    rows = _assigned(rows, golden)
+    ang = lambda a, b: np.arctan2(np.linalg.norm(np.cross(a, b), axis=1), np.sum(a * b, axis=1))  # noqa: E731
+    gaps = (max(ang(rows[:, 2:5], golden[:, 2:5]).max(), ang(rows[:, 6:9], golden[:, 6:9]).max()),
+            np.abs(rows[:, [5, 9]] - golden[:, [5, 9]]).max(),
+            (np.abs(rows[:, 10] - golden[:, 10]) / golden[:, 10]).max())
+    print(f"{what}: normals {gaps[0]:.3e} rad (tol {CP_NORMAL_TOL}), offsets {gaps[1]:.3e} m "
+          f"(tol {CP_D_TOL}), weights {gaps[2]:.3e} relative (tol {CP_W_RTOL})")
+    if gaps[0] > CP_NORMAL_TOL or gaps[1] > CP_D_TOL or gaps[2] > CP_W_RTOL:
+        raise AssertionError(f"{what}: control planes leave the tolerance")
+
+
+def check_rig(rt, ref, tol: tuple, what: str, relative: bool = False) -> None:
+    """Extrinsics (S, 4, 4) or one 4x4 against `ref` within tol (m, rad);
+    `relative`: sensor-0-relative (the rig's gauge)."""
+    rt, ref = np.asarray(rt, np.float64), np.asarray(ref, np.float64)
+    if rt.ndim == 2:
+        rt, ref = rt[None], ref[None]
+    dt, dr = _relative_gaps(rt, ref) if relative else _pose_gaps(rt, ref)
+    print(f"{what}: {dt:.3e} m, {dr:.3e} rad (tol {tol[0]}, {tol[1]})")
+    if dt > tol[0] or dr > tol[1]:
+        raise AssertionError(f"{what}: leaves the tolerance")
+
+
+def check_fim(table: np.ndarray, golden: np.ndarray, what: str) -> None:
+    """`calibrate fim`'s table: the eigenvalues never decrease as
+    correspondences accumulate, and the last row's eigenvalues within 1%
+    of the golden's."""
+    table = np.asarray(table)
+    inc = all(np.all(np.diff(table[:, c]) >= -1e-9) for c in (3, 6))
+    gap = float(np.max(np.abs(table[-1, 1:7] - golden[-1, 1:7])
+                       / np.maximum(np.abs(golden[-1, 1:7]), 1e-6)))
+    print(f"{what}: {len(table)} rows (golden {len(golden)}), largest eigenvalues never "
+          f"decrease {inc}; last row's eigenvalues {gap:.3e} relative to the golden's")
+    if not inc or len(table) != len(golden) or gap > 0.01:
+        raise AssertionError(f"{what}: the FIM table leaves the tolerance")
+
+
+def check_eval(rows: dict, golden: np.ndarray, what: str) -> None:
+    """`calibrate eval`'s table against the golden's: the same pairs and
+    counts; conditioning within 2%, residuals within 1e-4 / CP_D_TOL."""
+    got = np.asarray([[a, b, *v] for (a, b), v in sorted(rows.items())], np.float64)
+    ok = got.shape == golden.shape and np.array_equal(got[:, :3], golden[:, :3])
+    gaps = (np.abs(got[:, 3] - golden[:, 3]) / golden[:, 3]).max() if ok else np.inf
+    res = np.abs(got[:, 4:] - golden[:, 4:]).max(axis=0) if ok else [np.inf, np.inf]
+    print(f"{what}: {len(got)} pairs, conditioning {gaps:.3e} relative, rotation residual "
+          f"{res[0]:.3e}, translation residual {res[1]:.3e} m from the golden's")
+    if not ok or gaps > 0.02 or res[0] > 1e-4 or res[1] > CP_D_TOL:
+        raise AssertionError(f"{what}: the evaluation leaves the tolerance")
+
+
+def check_ransac(golden: dict, device, what: str) -> None:
+    """The port's RANSAC core on the golden's index triples, and the public
+    `ransac_plane` with its own hypotheses, on `ransac_scene()`."""
+    from rgbd360_tpu_torch.ops import ransac
+
+    pts_np = ransac_scene()
+    pts = torch.as_tensor(pts_np, device=device)
+    valid = torch.ones(len(pts), dtype=torch.bool, device=device)
+    idx = torch.as_tensor(golden["ransac_idx"].astype(np.int64), device=device)
+    n, d, count = ransac._ransac_plane_core(pts, valid, idx, 0.03)
+    inl = ((torch.abs(pts @ n + d) < 0.03) & valid).cpu().numpy()
+    n, d, count = n.cpu().numpy(), float(d), int(count)
+    gap = max(np.abs(n - golden["ransac_n"]).max(), abs(d - float(golden["ransac_d"])))
+    flips = int(np.sum(inl != golden["ransac_inliers"]))
+    print(f"{what}: core on the golden's {len(idx)} triples: plane {gap:.2e} from the golden's "
+          f"(tol {RANSAC_TOL}), count {count} (golden {int(golden['ransac_count'])}), inlier "
+          f"mask differs on {flips} points (tol {RANSAC_FLIPS})")
+    if gap > RANSAC_TOL or flips > RANSAC_FLIPS or abs(count - int(golden["ransac_count"])) > RANSAC_FLIPS:
+        raise AssertionError(f"{what}: the RANSAC core leaves the golden's tolerance")
+    pn, pd, pinl = ransac.ransac_plane(pts_np, dist_threshold=0.03, device=device)
+    cos = float(np.dot(pn, golden["ransac_plane_n"]))
+    dd = abs(pd - float(golden["ransac_plane_d"]))
+    frac = (float(pinl[:RANSAC_INLIERS].mean()), float(pinl[RANSAC_INLIERS:].mean()))
+    print(f"{what}: ransac_plane with its own hypotheses: normal . golden's {cos:.6f}, offset "
+          f"{dd:.2e} m apart, inliers {frac[0]:.3f} of the plane's points, {frac[1]:.3f} of "
+          f"the outliers")
+    if cos < 0.9999 or dd > 0.01 or frac[0] < 0.98 or frac[1] > 0.05 or pd < 0:
+        raise AssertionError(f"{what}: ransac_plane misses the plane")
+
+
+def check_labels(stats: dict, golden: dict, what: str) -> None:
+    ref = json.loads(str(golden["label_stats"]))
+    got = {lv: stats.get(lv, {}) for lv in LABEL_LEVELS}
+    print(f"{what}: label statistics {got} (golden {ref})")
+    if got != ref:
+        raise AssertionError(f"{what}: label statistics differ from the golden's")
+
+
+def check_pbmap_roundtrip(path: Path, planes, what: str) -> None:
+    """The .pbmap `view_frame --planes` wrote, read back field by field
+    against the plane set it came from."""
+    from rgbd360_tpu_torch.io.pbmap import planeset_to_pbplanes, read_pbmap
+
+    want, got = planeset_to_pbplanes(planes), read_pbmap(path)
+    fields = ("normal", "center", "ppal_dir", "color_nrgb", "hist_h", "polygon")
+    same = len(want) == len(got) and all(
+        np.array_equal(np.asarray(getattr(a, f), np.float32), getattr(b, f))
+        for a, b in zip(want, got) for f in fields
+    ) and all(a.num_observations == b.num_observations for a, b in zip(want, got))
+    print(f"{what}: {len(got)} planes read back from {path.name}, equal {same}")
+    if not same:
+        raise AssertionError(f"{what}: the PbMap read back differs")
+
+
+def check_gif(path: Path, frames: int, shape: tuple, what: str) -> None:
+    """The GIF's header, size, frame count (image descriptors after a
+    graphic control extension) and trailer."""
+    import struct
+
+    data = path.read_bytes()
+    w, h = struct.unpack_from("<HH", data, 6)
+    n = data.count(b"\x21\xf9\x04")
+    print(f"{what}: {path.name} {len(data)} bytes, {w}x{h}, {n} frames, header "
+          f"{data[:6]!r}, trailer {data[-1:]!r}")
+    if data[:6] != b"GIF89a" or data[-1:] != b"\x3b" or (h, w) != tuple(shape) or n < frames:
+        raise AssertionError(f"{what}: not a valid {frames}-frame GIF")
+
+
+def run_rawlog(raws: list, tmp: Path, builder, calib: list) -> dict:
+    """`load_rawlog` on a rawlog of the captures with gray images: with
+    `--to-bin` (read back) and as a sphere export."""
+    from rgbd360_tpu_torch.apps import load_rawlog
+    from rgbd360_tpu_torch.io.bin_format import read_rig_frame
+    from rgbd360_tpu_torch.io.rawlog import write_rawlog
+
+    log = tmp / "walk.rawlog"
+    write_rawlog(log, gray_observations(raws))
+    n_bin = load_rawlog.main([str(log), "--out", str(tmp / "bins"), "--to-bin"] + calib,
+                             builder=builder)
+    back = [read_rig_frame(tmp / "bins" / f"sphere_images_{i + 1}.bin") for i in range(n_bin)]
+    n_sph = load_rawlog.main([str(log), "--out", str(tmp / "rl")] + calib, builder=builder)
+    return {"n_bin": n_bin, "n_sphere": n_sph, "back": back, "out": tmp / "rl",
+            "exported": sorted(p.name for p in (tmp / "rl").iterdir())}
+
+
+def check_rawlog(got: dict, raws: list, what: str) -> None:
+    depth = [np.array_equal(b.depth_mm, r.depth_mm) for b, r in zip(got["back"], raws)]
+    gray = [bool(np.all(b.rgb[..., 0] == b.rgb[..., 1]) and np.all(b.rgb[..., 1] == b.rgb[..., 2]))
+            for b in got["back"]]
+    sizes = [(got["out"] / n).stat().st_size for n in got["exported"]]
+    print(f"{what}: --to-bin wrote {got['n_bin']} captures, depth equal {depth}, gray replicated "
+          f"to 3 channels {gray}; the sphere export rendered {got['n_sphere']}: "
+          f"{got['exported']}")
+    if got["n_bin"] != len(raws) or not all(depth) or not all(gray) or got["n_sphere"] != len(raws):
+        raise AssertionError(f"{what}: the rawlog round trip fails")
+    if len(got["exported"]) < 2 * len(raws) or min(sizes) == 0:
+        raise AssertionError(f"{what}: the sphere export is empty")
+
+
+def run_stereo(builder, raws: list, tmp: Path) -> dict:
+    """Each capture's refined sphere depth written as a depth-only stereo
+    frame and read back; both read-back spheres tracked through
+    `TrackerBase.make_state_from_sphere` (the gray of the built sphere, the
+    depth of the file) and aligned (photo + depth)."""
+    from rgbd360_tpu_torch.io.stereo import read_stereo_frame, write_stereo_depth
+
+    b = refined_builder(builder)
+    tracker = FrameToFrameOdometry(b)
+    states, equal = [], []
+    for i, raw in enumerate(raws):
+        sphere = b.build(RigFrame.from_raw(raw, b.sensor.device))
+        depth = sphere.sphere_depth.cpu().numpy()
+        write_stereo_depth(tmp / f"stereo_{i}.bin", depth)
+        frame = read_stereo_frame(tmp / f"stereo_{i}.bin")
+        equal.append(frame.rgb is None and np.array_equal(frame.depth, depth))
+        _reset_counts()
+        states.append(tracker.make_state_from_sphere(
+            sphere.sphere_gray, torch.as_tensor(frame.depth, device=b.sensor.device)))
+        launches = _counts()
+    res = tracker.aligner.align(states[1].pyramid, states[0].pyramid)
+    return {"equal": equal, "launches": launches, "pose": res.pose.cpu().numpy(),
+            "planes": int(states[0].planes.valid.sum())}
+
+
+def check_stereo(got: dict, what: str, launches: bool = True) -> None:
+    """`run_stereo`'s round trip and alignment; with `launches` (on the
+    card), one state's pyramid is 1 K1 + 4 K2 launches."""
+    step = float(got["pose"][0, 3])
+    print(f"{what}: depth read back equal {got['equal']}; {got['planes']} planes from the "
+          f"sphere; the pair's axial step {step:.5f} m")
+    if launches:
+        check_app_launches(got["launches"], 1, f"{what}: one state's pyramid")
+    if not all(got["equal"]) or not np.isfinite(got["pose"]).all() or abs(step - STEP_M) > STEP_TOL_M:
+        raise AssertionError(f"{what}: the stereo round trip or its tracking fails")
+
+
+def run_calibrate(paths: dict, tmp: Path, builder, calib: list, rig,
+                  golden_cp: np.ndarray) -> dict:
+    """The `calibrate` sub-commands as phase m runs them (see
+    `torch_port_golden.calibrate_jax`) on the rig `rig`, with `builder`
+    (None: the app's own from `--calib`), plus `solve` and `pair` on the
+    golden's own control planes `golden_cp` (rows as `cal_cp`).  `calib`
+    is `--calib DIR --no-intrinsics` and any further flags (`--device`),
+    which every sub-command but `tof` also takes."""
+    from rgbd360_tpu_torch.apps import calibrate
+
+    cp = str(tmp / "cp.txt")
+    pair = [str(v) for v in CAL_PAIR]
+    write_perturbed_calibration(tmp / "pert", rig)
+    ins = write_tof_laser_inputs(tmp / "extras")
+    pert = ["--calib", str(tmp / "pert"), "--no-intrinsics"] + calib[3:]
+    run = lambda argv: calibrate.main(argv, builder=builder)  # noqa: E731
+    walls, out = {}, {}
+
+    def timed(name, argv):
+        t0 = time.perf_counter()
+        res = run(argv)
+        walls[name] = time.perf_counter() - t0
+        return res
+
+    timed("collect", ["collect", str(paths["loop"]), "--out", cp] + calib)
+    out["cp"] = np.loadtxt(cp)
+    out["solve"] = timed("solve", ["solve", cp, "--out", str(tmp / "rt")] + pert)
+    out["pair"] = timed("pair", ["pair", cp, "--sensors", *pair] + calib)
+    out["eval"] = timed("eval", ["eval", cp] + calib)
+    out["fim"] = timed("fim", ["fim", cp, "--sensors", *pair, "--out", str(tmp / "fim.csv")] + calib)
+    out["online"] = timed("online", ["online", str(paths["loop"]), "--sensors", *pair,
+                                     "--threshold-conditioning", "100000"] + calib)
+    out["tof"] = timed("tof", ["tof", str(ins["tof"]), "--out", str(tmp / "tof.txt")] + calib[3:])
+    out["laser"] = timed("laser", ["laser", str(ins["laser"]), "--planes", str(ins["planes"]),
+                                   "--guess", str(ins["guess"])] + calib)
+    walk0 = sorted(paths["walk"].glob("sphere_images_*.bin"))[0]
+    out["viz"] = timed("viz", ["viz", str(walk0), "--out", str(tmp / "viz")] + calib)
+    out["viz_files"] = {p.name: p.stat().st_size for p in (tmp / "viz").iterdir()}
+    np.savetxt(tmp / "golden_cp.txt", golden_cp)
+    out["solve_golden_cp"] = run(["solve", str(tmp / "golden_cp.txt")] + pert)
+    out["pair_golden_cp"] = run(["pair", str(tmp / "golden_cp.txt"), "--sensors", *pair] + calib)
+    out["walls"] = walls
+    return out
+
+
+def check_viz(files: dict, what: str) -> None:
+    print(f"{what}: {files}")
+    if sorted(files) != ["rig_by_sensor.ply", "stitch_seams.png"] or min(files.values()) <= 1000:
+        raise AssertionError(f"{what}: files missing or empty")
+
+
+def check_calibrate(got: dict, golden: dict, rig, what: str, gate, rig_truth: bool = True) -> None:
+    """`run_calibrate`'s results against the golden (see the tolerances
+    above), the laser and ToF extrinsics against their truth, and with
+    `rig_truth` (at full size) the solved rig against the true one."""
+    gate(check_control_planes, got["cp"], golden["cal_cp"], f"{what} collect")
+    true_rt = synthetic.calibration(rig).rt.astype(np.float64)
+    gate(check_rig, got["solve_golden_cp"], golden["cal_solve_rt"], CAL_SAME_TOL,
+         f"{what} solve on the golden's control planes vs the golden's")
+    gate(check_rig, got["pair_golden_cp"], golden["cal_pair_rt"], CAL_SAME_TOL,
+         f"{what} pair on the golden's control planes vs the golden's")
+    gate(check_rig, got["solve"], golden["cal_solve_rt"], CAL_OWN_TOL,
+         f"{what} solve vs the golden's")
+    gate(check_rig, got["pair"], golden["cal_pair_rt"], CAL_OWN_TOL, f"{what} pair vs the golden's")
+    gate(check_eval, got["eval"], golden["cal_eval"], f"{what} eval")
+    gate(check_fim, got["fim"], golden["cal_fim"], f"{what} fim")
+    gate(check_rig, got["online"], golden["cal_online_rt"], CAL_OWN_TOL,
+         f"{what} online --sensors {CAL_PAIR} vs the golden's", True)
+    gate(check_rig, got["tof"], golden["cal_tof_rt"], TOF_TOL, f"{what} tof vs the golden's")
+    gate(check_rig, got["laser"], golden["cal_laser_rt"], CAL_SAME_TOL,
+         f"{what} laser vs the golden's")
+    gate(check_viz, got["viz_files"], f"{what} viz")
+    gate(check_rig, got["laser"], se3_exp_np(LASER_RT), LASER_TRUTH, f"{what} laser vs the truth")
+    gate(check_rig, got["tof"], se3_exp_np(TOF_RT), TOF_TRUTH, f"{what} tof vs the truth")
+    ref_gap = _relative_gaps(golden["cal_solve_rt"], true_rt)
+    print(f"{what} solve: the golden's own gap to the true rig {ref_gap[0]:.3e} m, "
+          f"{ref_gap[1]:.3e} rad")
+    if rig_truth:
+        gate(check_rig, got["solve"], true_rt, (CAL_TRUTH_M, CAL_TRUTH_RAD),
+             f"{what} solve vs the true rig (sensor-0 relative)", True)
+
+
+def run_labelize(paths: dict, tmp: Path, builder, calib: list) -> dict:
+    from rgbd360_tpu_torch.apps import labelize
+
+    store, labels = str(tmp / "store.json"), tmp / "labels.json"
+    labels.write_text(json.dumps(LABELS))
+    walk = str(paths["walk"])
+    labelize.main(["apply", walk, "--frame", str(LABEL_FRAME), "--labels", str(labels),
+                   "--store", store] + calib, builder=builder)
+    labelize.main(["propagate", walk, "--store", store] + calib, builder=builder)
+    return labelize.main(["stats", "--store", store])
+
+
+def run_view(paths: dict, tmp: Path, builder, calib: list, cfg) -> dict:
+    """`view_frame` on walk capture 0 with `--planes --cloud`, its .pcd
+    cloud with the paired .pbmap, and `--sequence --video` over the walk,
+    with `builder` (None: the app's own from `--calib`; a builder of the
+    same calibration at `cfg` then segments the frame again for the PbMap
+    round trip)."""
+    from rgbd360_tpu_torch.apps import view_frame
+
+    walk0 = sorted(paths["walk"].glob("sphere_images_*.bin"))[0]
+    out = tmp / "view"
+    f, = view_frame.main([str(walk0), "--out", str(out), "--planes", "--cloud"] + calib,
+                         builder=builder)
+    seg = builder or FrameBuilder(load_calibration(paths["calib"] / "Extrinsics", None,
+                                                   rig=cfg.rig), cfg, device=f.sphere_depth.device)
+    planes = seg.segment_planes(f)
+    pano = view_frame.main([str(out / f"{walk0.stem}_cloud.pcd"), "--out", str(tmp / "pano")]
+                           + calib)
+    frames = view_frame.main([str(paths["walk"]), "--out", str(tmp / "seq"), "--sequence",
+                              "--video"] + calib, builder=builder)
+    return {"out": out, "stem": walk0.stem, "planes": planes, "pano_px": int((pano > 0).any(-1).sum()),
+            "frames": len(frames), "gif": tmp / "seq" / "sequence.gif",
+            "shape": tuple(f.sphere_depth.shape)}
+
+
+def check_view(got: dict, what: str) -> None:
+    stem = got["stem"]
+    check_app_files(got["out"], [f"{stem}_{s}" for s in ("rgb.png", "depth.png", "planes.png",
+                                                          "planes.pbmap", "cloud.ply",
+                                                          "cloud.pcd")], what)
+    check_pbmap_roundtrip(got["out"] / f"{stem}_planes.pbmap", got["planes"], what)
+    print(f"{what}: the .pcd panorama covers {got['pano_px']} pixels")
+    if got["pano_px"] == 0:
+        raise AssertionError(f"{what}: the .pcd panorama is empty")
+    check_gif(got["gif"], got["frames"], got["shape"], f"{what} --sequence --video")
+
+
+def check_extras_phase(smi: str) -> None:
+    """Phase m: the extras on the card at full size, against
+    `data/extras_golden.npz`."""
+    import tempfile
+
+    from rgbd360_tpu_torch.apps import odometry
+    from rgbd360_tpu_torch.io.bin_format import read_rig_frame
+
+    failed: list = []
+    gate = _gate_collector(failed)
+    golden = dict(np.load(EXTRAS_GOLDEN))
+    cfg = synthetic.config()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        paths = synthetic.write_app_inputs(tmp)
+        walk = sorted(paths["walk"].glob("sphere_images_*.bin"),
+                      key=lambda p: int(p.stem.rsplit("_", 1)[1]))
+        raws = [read_rig_frame(p) for p in walk]
+        calib = ["--calib", str(paths["calib"]), "--no-intrinsics"]
+        print(f"extras set-up (calibration directory, loop and walk capture files): "
+              f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        cal = extras_calibration(cfg)
+        own = FrameBuilder(cal, cfg)
+        ref = FrameBuilder(cal, cfg)
+        load_reference_maps(ref)
+        t0 = time.perf_counter()
+        gate(check_refined_sample, ref, raws[0], golden, "extras: refined stitch (reference maps)")
+        gate(check_octagon, octagon_errors(own, raws[0]), golden, "extras: refined stitch")
+        walls["refined stitch checks"] = time.perf_counter() - t0
+        del ref
+
+        # the plain app first, then the refined one, each `process` timed
+        # (after the first frame) in this one call
+        frame_ms = {}
+        for name, flag in (("odometry", []), ("odometry --parallax-refine", ["--parallax-refine"])):
+            _reset_counts()
+            t0 = time.perf_counter()
+            with timed_process(FrameToFrameOdometry) as ms:
+                traj = odometry.main([str(paths["walk"])] + calib + flag)
+            walls[name] = time.perf_counter() - t0
+            frame_ms[name] = statistics.median(ms[1:])
+            gate(check_app_launches, _counts(), len(walk), f"extras: {name}")
+        gate(check_refined_steps, traj, golden, "extras: odometry --parallax-refine")
+        print(f"extras: odometry `process` per frame after the first (median of "
+              f"{len(walk) - 1}): plain {frame_ms['odometry']:.1f} ms, --parallax-refine "
+              f"{frame_ms['odometry --parallax-refine']:.1f} ms, on {smi}")
+
+        t0 = time.perf_counter()
+        got = run_calibrate(paths, tmp, None, calib, cfg.rig, golden["cal_cp"])
+        walls["calibrate (9 sub-commands)"] = time.perf_counter() - t0
+        print(f"extras: calibrate walls (s) " + json.dumps(
+            {k: round(v, 3) for k, v in got["walls"].items()}) + f", on {smi}")
+        check_calibrate(got, golden, cfg.rig, "extras: calibrate", gate)
+
+        t0 = time.perf_counter()
+        rl = run_rawlog(raws[:2], tmp, None, calib)
+        walls["load_rawlog (--to-bin and export)"] = time.perf_counter() - t0
+        gate(check_rawlog, rl, raws[:2], "extras: load_rawlog")
+
+        t0 = time.perf_counter()
+        view = run_view(paths, tmp, None, calib, cfg)
+        walls["view_frame (3 runs)"] = time.perf_counter() - t0
+        gate(check_view, view, "extras: view_frame")
+
+        t0 = time.perf_counter()
+        stats = run_labelize(paths, tmp, None, calib)
+        walls["labelize (apply, propagate, stats)"] = time.perf_counter() - t0
+        gate(check_labels, stats, golden, "extras: labelize")
+
+        t0 = time.perf_counter()
+        gate(check_stereo, run_stereo(own, raws[:2], tmp), "extras: stereo")
+        walls["stereo"] = time.perf_counter() - t0
+        gate(check_ransac, golden, own.sensor.device, "extras: ransac")
+        phase_s = time.perf_counter() - t_phase
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    for name, wall in walls.items():
+        print(f"extras: {name} {wall:.2f} s, on {smi}")
+    print(f"extras: phase m {phase_s:.1f} s after its set-up; peak device memory {peak:.1f} MiB, "
+          f"on {smi}")
+    if failed:
+        raise AssertionError(f"phase m: {len(failed)} gates failed: " + " | ".join(failed))
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the port.")
-    parser.add_argument("--phases", default="bcdefgijkl",
+    parser.add_argument("--phases", default="bcdefgijklm",
                         help="the phases to run (a, the build and h always run); a partial "
                              "run prints no result lines")
     phases = parser.parse_args(argv).phases
@@ -3099,7 +3887,8 @@ def main(argv=None) -> int:
                          ("i", lambda: check_keyframe_phase(smi)),
                          ("j", lambda: check_apps_phase(smi)),
                          ("k", lambda: check_long_phase(smi)),
-                         ("l", lambda: check_registration_phase(smi))):
+                         ("l", lambda: check_registration_phase(smi)),
+                         ("m", lambda: check_extras_phase(smi))):
         if phase in phases:
             t0 = time.perf_counter()
             check()
@@ -3108,7 +3897,7 @@ def main(argv=None) -> int:
     for job in _DEFERRED_PYRAMIDS + _DEFERRED:
         job()
     print(f"phase h took {time.perf_counter() - t0:.1f} s")
-    if set("bcdefgijkl") - set(phases):
+    if set("bcdefgijklm") - set(phases):
         print(f"partial run (phases {phases}): no result lines")
         return 0
 

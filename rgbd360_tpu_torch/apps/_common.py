@@ -3,8 +3,7 @@
 
 `--calib` names the calibration directory; unlike the reference's, it has
 no default (the reference defaults to a path of its own host).
-`--parallax-refine` sets `sphere.parallax_refine`, which the port's
-`FrameBuilder` refuses with NotImplementedError (not ported yet)."""
+`--parallax-refine` sets `sphere.parallax_refine` (the two-pass stitch)."""
 
 from __future__ import annotations
 

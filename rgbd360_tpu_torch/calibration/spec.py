@@ -1,7 +1,7 @@
-"""Construction-spec rig extrinsics, in numpy.
-
-A copy of `rgbd360_tpu/calibration/solver.py:construction_spec_rt`, whose
-module cannot be imported without jax.
+"""Construction-spec rig extrinsics, in numpy: the port's one definition
+of `rgbd360_tpu/calibration/solver.py:construction_spec_rt`, which
+`calibration.solver` imports (and the synthetic rig and the rawlog export
+use without the solver).
 """
 
 from __future__ import annotations

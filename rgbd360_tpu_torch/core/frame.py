@@ -138,11 +138,6 @@ class FrameBuilder(nn.Module):
         device = resolve_device(device)
         self.config = config or default_config()
         self.downsample_cloud = downsample_cloud
-        if self.config.sphere.parallax_refine:
-            raise NotImplementedError(
-                "the parallax-refined stitch (sphere.parallax_refine, the apps' "
-                "--parallax-refine) is not ported yet (ROADMAP section 1.3)"
-            )
         rig, sph = self.config.rig, self.config.sphere
         rt = torch.as_tensor(calib.rt, dtype=torch.float32)
         rt_inv = torch.as_tensor(calib.rt_inv, dtype=torch.float32)
@@ -244,17 +239,25 @@ class FrameBuilder(nn.Module):
 
     def _build_impl(self, rgb: torch.Tensor, depth_raw: torch.Tensor, timer=None) -> SphereFrame:
         """One capture (S, H, W, ...) or a batch (B, S, H, W, ...): one
-        stitch gather for the batch, then the cloud stage."""
+        stitch gather for the batch, then the cloud stage.  With
+        `sphere.parallax_refine` one capture takes the two-pass
+        `stitch_refined`; a batch never refines (the reference's
+        `build_batch` stitches with the calibration-only maps)."""
         self._check_device(rgb, depth_raw)
         batched = rgb.ndim == 5
         with _region(timer, "stitch"):
             depth = self._undistort_depth(depth_raw)
             rgb = rgb.to(torch.float32)
-            sphere_rgb, sphere_depth = stitch_ops.stitch_batch(
-                self.maps, rgb if batched else rgb[None], depth if batched else depth[None]
-            )
-            if not batched:
-                sphere_rgb, sphere_depth = sphere_rgb[0], sphere_depth[0]
+            if not batched and self.config.sphere.parallax_refine:
+                sphere_rgb, sphere_depth = stitch_ops.stitch_refined(
+                    self.maps, rgb, depth, self.rt, self.rt_inv, self.k
+                )
+            else:
+                sphere_rgb, sphere_depth = stitch_ops.stitch_batch(
+                    self.maps, rgb if batched else rgb[None], depth if batched else depth[None]
+                )
+                if not batched:
+                    sphere_rgb, sphere_depth = sphere_rgb[0], sphere_depth[0]
             sphere_gray = stitch_ops.rgb_to_gray(sphere_rgb)
         with _region(timer, "cloud"):
             return self._cloud_stage(rgb, depth, sphere_rgb, sphere_gray, sphere_depth)

@@ -6,7 +6,8 @@ segment / register / align ...) and wraps each region in
 trace.  PyTorch runs the card asynchronously: by default a region measures
 the host's enqueue time; with `sync=True` it ends with
 `torch.cuda.synchronize()` (once the program uses the card) and measures
-the stage's wall time.
+the stage's wall time.  `trace_to` captures a `torch.profiler` trace of
+a region into a directory.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 
@@ -56,3 +58,19 @@ class StageTimer:
     def reset(self):
         self.times.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Capture a `torch.profiler` trace of the enclosed region (host ops,
+    and the card's kernels once the program uses the card) into
+    `logdir/trace.json`, a Chrome trace (view it with Perfetto or
+    TensorBoard).  Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_initialized():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -1,11 +1,10 @@
-"""Offline visualization: PNG / PLY export without GUI dependencies (a copy
-of `rgbd360_tpu/utils/viz.py` without its GIF writer, which only the
-reference's sequence viewer uses).
+"""Offline visualization: PNG / GIF / PLY export without GUI dependencies (a
+copy of `rgbd360_tpu/utils/viz.py`).
 
 Replaces the reference's PCL CloudViewer windows (reference
 `include/Frame360_Visualizer.h`, `include/Map360_Visualizer.h`) with
 file-based rendering suitable for headless hosts: spherical images go to
-PNG, point clouds and trajectories to PLY, and the map viewer's four view
+PNG (a sequence to an animated GIF), point clouds and trajectories to PLY, and the map viewer's four view
 modes become the file exporter `apps/kf_slam.export_map`.
 """
 
@@ -38,6 +37,97 @@ def save_png(path: str | Path, arr: np.ndarray) -> None:
         + chunk(b"IEND", b"")
     )
     Path(path).write_bytes(png)
+
+
+def _lzw_encode(indices: np.ndarray, code_bits: int) -> bytes:
+    """GIF-flavor LZW for a stream of palette indices (variable-width codes,
+    dictionary reset at 4096 entries)."""
+    clear = 1 << code_bits
+    eoi = clear + 1
+    out = bytearray()
+    acc = 0
+    nbits = 0
+
+    def emit(code: int, width: int):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table = {(i,): i for i in range(clear)}
+    next_code = eoi + 1
+    width = code_bits + 1
+    emit(clear, width)
+    seq: tuple = ()
+    for sym in indices.tolist():
+        cand = seq + (sym,)
+        if cand in table:
+            seq = cand
+            continue
+        emit(table[seq], width)
+        table[cand] = next_code
+        next_code += 1
+        if next_code > (1 << width) and width < 12:
+            width += 1
+        if next_code >= 4096:
+            emit(clear, width)
+            table = {(i,): i for i in range(clear)}
+            next_code = eoi + 1
+            width = code_bits + 1
+        seq = (sym,)
+    if seq:
+        emit(table[seq], width)
+    emit(eoi, width)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def save_gif(path: str | Path, frames, fps: float = 10.0) -> None:
+    """Write an animated GIF from (H, W, 3) uint8-able RGB frames (no deps).
+
+    Covers the reference's "save video" sequence-viewer mode
+    (`Visualization/LoadSequence.cpp:59-65`) on headless hosts.  Colors are
+    quantized to a fixed 3-3-2 RGB palette (256 entries).
+    """
+    frames = [np.clip(np.asarray(f), 0, 255).astype(np.uint8) for f in frames]
+    if not frames:
+        raise ValueError("no frames")
+    h, w = frames[0].shape[:2]
+    delay_cs = max(2, int(round(100.0 / fps)))
+
+    # 3-3-2 palette
+    pal = np.zeros((256, 3), np.uint8)
+    idx = np.arange(256)
+    pal[:, 0] = ((idx >> 5) & 7) * 255 // 7
+    pal[:, 1] = ((idx >> 2) & 7) * 255 // 7
+    pal[:, 2] = (idx & 3) * 255 // 3
+
+    out = bytearray()
+    out += b"GIF89a"
+    out += struct.pack("<HHBBB", w, h, 0xF7, 0, 0)  # global palette, 256 colors
+    out += pal.tobytes()
+    # netscape loop extension (loop forever)
+    out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        if f.ndim == 2:
+            f = np.stack([f] * 3, -1)
+        q = ((f[..., 0] >> 5).astype(np.uint16) << 5) | (
+            (f[..., 1] >> 5).astype(np.uint16) << 2
+        ) | (f[..., 2] >> 6).astype(np.uint16)
+        out += b"\x21\xf9" + struct.pack("<BBHBB", 4, 0, delay_cs, 0, 0)
+        out += b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0)
+        out += bytes([8])  # LZW min code size
+        data = _lzw_encode(q.reshape(-1).astype(np.int32), 8)
+        for i in range(0, len(data), 255):
+            block = data[i : i + 255]
+            out += bytes([len(block)]) + block
+        out += b"\x00"
+    out += b"\x3b"
+    Path(path).write_bytes(bytes(out))
 
 
 def depth_to_gray(depth: np.ndarray, max_depth: float = 6.0) -> np.ndarray:

@@ -20,12 +20,21 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch",
     "rgbd360_tpu_torch.apps._common",
     "rgbd360_tpu_torch.apps.benchmark_registration",
+    "rgbd360_tpu_torch.apps.calibrate",
     "rgbd360_tpu_torch.apps.grabber",
     "rgbd360_tpu_torch.apps.kf_slam",
+    "rgbd360_tpu_torch.apps.labelize",
+    "rgbd360_tpu_torch.apps.load_rawlog",
     "rgbd360_tpu_torch.apps.odometry",
     "rgbd360_tpu_torch.apps.register_pair",
     "rgbd360_tpu_torch.apps.register_sequence",
+    "rgbd360_tpu_torch.apps.view_frame",
+    "rgbd360_tpu_torch.calibration",
+    "rgbd360_tpu_torch.calibration.control_planes",
+    "rgbd360_tpu_torch.calibration.laser",
+    "rgbd360_tpu_torch.calibration.solver",
     "rgbd360_tpu_torch.calibration.spec",
+    "rgbd360_tpu_torch.calibration.tof",
     "rgbd360_tpu_torch.config",
     "rgbd360_tpu_torch.convert",
     "rgbd360_tpu_torch.core.frame",
@@ -33,13 +42,17 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.io.calib",
     "rgbd360_tpu_torch.io.clams",
     "rgbd360_tpu_torch.io.dataset",
+    "rgbd360_tpu_torch.io.pbmap",
     "rgbd360_tpu_torch.io.pcd",
+    "rgbd360_tpu_torch.io.rawlog",
+    "rgbd360_tpu_torch.io.stereo",
     "rgbd360_tpu_torch.ops._build",
     "rgbd360_tpu_torch.ops.bilateral",
     "rgbd360_tpu_torch.ops.camera",
     "rgbd360_tpu_torch.ops.filters",
     "rgbd360_tpu_torch.ops.hopper_kernels",
     "rgbd360_tpu_torch.ops.pyramid",
+    "rgbd360_tpu_torch.ops.ransac",
     "rgbd360_tpu_torch.ops.se3",
     "rgbd360_tpu_torch.ops.segmentation",
     "rgbd360_tpu_torch.ops.stitch",
@@ -50,6 +63,7 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.registration.rig_dense",
     "rgbd360_tpu_torch.slam.graph",
     "rgbd360_tpu_torch.slam.graph_backend",
+    "rgbd360_tpu_torch.slam.labeling",
     "rgbd360_tpu_torch.slam.loop_closure",
     "rgbd360_tpu_torch.slam.map",
     "rgbd360_tpu_torch.slam.odometry",

@@ -86,9 +86,24 @@ only the files in `rgbd360_tpu_torch/data/`:
   modes 1 and 2 on the walk's REG_EXTRA_PAIR and a pinhole solve on sensor
   0's raw pair.
 
+* `extras_golden.npz` (`--extras-only`), the extras of phase m over the
+  files it writes (`synthetic.write_app_inputs`, `--no-intrinsics`): the
+  reference's plain and parallax-refined builds of walk capture 0 (the
+  rig's calibration without CLAMS, the reference's maps), the refined
+  depth and refined maps at a seeded sample of `chip_smoke.STITCH_SAMPLE`
+  pixels and both spheres' errors against the analytic octagon
+  (`stitch_*`); `odometry.main --parallax-refine` over the walk, each
+  step's dense solve again from REG_JITTERS jittered seeds (`odo_*`);
+  `calibrate` `collect` over the loop, `solve` from the perturbed
+  extrinsics of `chip_smoke.perturbed_rt`, `pair`, `eval`, `fim`,
+  `online --sensors 0 1`, `tof` and `laser` on `chip_smoke`'s ToF and
+  laser scenes (`cal_*`); `labelize apply` / `propagate` statistics
+  (`label_stats`); the RANSAC core on the reference's own index triples
+  and the public `ransac_plane` (`ransac_*`).  ~4 min on the CPU.
+
     JAX_PLATFORMS=cpu python tools/torch_port_golden.py \
         [--batch-only | --odometry-only | --keyframe-only | --apps-only |
-         --registration-only]
+         --registration-only | --extras-only]
 """
 
 from __future__ import annotations
@@ -543,15 +558,17 @@ def keyframe_jax(subsample: int = 1, pyramid_levels: int = 5, config=None,
 @contextlib.contextmanager
 def reference_apps(cfg):
     """The reference's apps (`rgbd360_tpu.apps.{odometry,kf_slam,
-    register_pair,benchmark_registration,register_sequence}.main`) run at
+    register_pair,benchmark_registration,register_sequence,calibrate,
+    labelize,load_rawlog,view_frame}.main`) run at
     the port configuration `cfg`: for the duration, the reference's
     `default_config` (and the one its `FrameBuilder` falls back on, which
     the registration apps build without a config) returns `cfg`'s twin and
     the apps' calibration loader gives the rig's own pinhole intrinsics (it
     assumes the full-size rig).  The reference package is not edited."""
     from rgbd360_tpu import config as ref_config
-    from rgbd360_tpu.apps import (benchmark_registration, kf_slam, odometry, register_pair,
-                                  register_sequence)
+    from rgbd360_tpu.apps import (benchmark_registration, calibrate, kf_slam, labelize,
+                                  load_rawlog, odometry, register_pair, register_sequence,
+                                  view_frame)
     from rgbd360_tpu.core import frame as ref_frame
     from rgbd360_tpu.io.calib import load_calibration
 
@@ -560,7 +577,8 @@ def reference_apps(cfg):
     def load_calib(args):
         return load_calibration(pathlib.Path(args.calib) / "Extrinsics", None, rig=ref_cfg.rig)
 
-    apps = (kf_slam, odometry, register_pair, benchmark_registration, register_sequence)
+    apps = (kf_slam, odometry, register_pair, benchmark_registration, register_sequence,
+            calibrate, labelize, load_rawlog, view_frame)
     saved = (ref_config.default_config, ref_frame.default_config,
              [app.load_calib for app in apps])
     ref_config.default_config = ref_frame.default_config = lambda: ref_cfg
@@ -892,6 +910,223 @@ def registration_jax(paths: dict, subsample: int = 1, pyramid_levels: int = 5,
     return out
 
 
+# ---------------------------------------------------------------- the extras
+
+def stitch_sample_jax(cfg, raw, n: int = None) -> dict:
+    """The reference's plain and parallax-refined builds of one capture
+    (the rig's calibration without CLAMS, the reference's own maps): the
+    refined depth and refined maps at a seeded sample of `n` sphere pixels
+    (`stitch_sample`, `stitch_depth`, `stitch_u`, `stitch_v`), and both
+    spheres' mean absolute radial error against the analytic octagon and
+    coverage (`stitch_err_*`, `stitch_cov_*`)."""
+    import chip_smoke as C
+    from rgbd360_tpu.apps.grabber import _octagon_hit
+    from rgbd360_tpu.core.frame import FrameBuilder
+    from rgbd360_tpu.ops import camera
+
+    n = n or C.STITCH_SAMPLE
+    ref_cfg, cal = reference_inputs(cfg)
+    cal = dataclasses.replace(cal, clams_multipliers=None, clams_counts=None)
+    refined_cfg = dataclasses.replace(
+        ref_cfg, sphere=dataclasses.replace(ref_cfg.sphere, parallax_refine=True))
+    frame = RigFrame(jnp.asarray(raw.rgb), jnp.asarray(raw.depth_mm))
+    plain = FrameBuilder(cal, ref_cfg).build(frame)
+    b_ref = FrameBuilder(cal, refined_cfg)
+    refined = b_ref.build(frame)
+    p = b_ref._params
+    maps = stitch_ops.refine_stitch_maps(b_ref.maps, plain.sphere_depth, p["rt_inv"], p["k"],
+                                         ref_cfg.rig.height, ref_cfg.rig.width)
+    h, w = plain.sphere_depth.shape
+    gt = _octagon_hit(np.zeros(3), np.asarray(camera.sphere_rays(h, w)), synthetic.ROOM_RADIUS)
+    out = {}
+    for tag, f in (("plain", plain), ("refined", refined)):
+        d = np.asarray(f.sphere_depth)
+        m = (d > 0) & np.isfinite(gt)
+        out[f"stitch_err_{tag}"] = np.float64(np.mean(np.abs(d - gt)[m]))
+        out[f"stitch_cov_{tag}"] = np.float64(np.mean(d > 0))
+    idx = np.sort(np.random.default_rng(0).choice(h * w, n, replace=False)).astype(np.int32)
+    out.update(stitch_sample=idx,
+               stitch_depth=np.asarray(refined.sphere_depth).reshape(-1)[idx],
+               stitch_u=np.asarray(maps.u).reshape(-1)[idx].astype(np.int16),
+               stitch_v=np.asarray(maps.v).reshape(-1)[idx].astype(np.int16))
+    return out
+
+
+def odometry_refined_jax(paths: dict, cfg, n_jitters: int = REG_JITTERS) -> dict:
+    """The reference `apps.odometry.main --parallax-refine` over the walk:
+    its trajectory (`odo_trajectory`), per-frame steps (`odo_steps`), and
+    the dense solve that gave each step again from REG_JITTERS jittered
+    seeds (`odo_branch_steps` (P, n-1, 4, 4))."""
+    from rgbd360_tpu.apps import odometry
+
+    argv = [str(paths["walk"]), "--calib", str(paths["calib"]), "--no-intrinsics",
+            "--parallax-refine"]
+    with reference_apps(cfg), recorded_solves() as log:
+        traj = np.asarray(odometry.main(argv), np.float64)
+    steps = np.linalg.inv(traj[:-1]) @ traj[1:]
+    calls = log["dense"]
+    poses = np.asarray([c[6] for c in calls], np.float64)
+    # each step's solve: the first of the closest solves after the previous
+    # step's (a solve that ends on its seed repeats the previous step)
+    matched, j0 = [], 0
+    for s in steps:
+        gap = np.linalg.norm(poses[j0:] - s, axis=(1, 2))
+        matched.append(j0 + int(np.argmin(gap)))
+        j0 = matched[-1] + 1
+    gaps = [float(np.abs(poses[j] - s).max()) for j, s in zip(matched, steps)]
+    print(f"odometry --parallax-refine: {len(calls)} dense solves, each step's solve "
+          f"{matched} (largest entry gap {max(gaps):.2e})")
+    return {"odo_trajectory": traj.astype(np.float32), "odo_steps": steps.astype(np.float32),
+            "odo_branch_steps": solve_branches([calls[j] for j in matched], n_jitters)}
+
+
+@contextlib.contextmanager
+def recorded_calibrations():
+    """Record the results of the reference's `RigCalibrator.calibrate` and
+    `PairCalibrator.calibrate` (their classes' methods wrapped for the
+    duration; the package is not edited): yields {"rig": [rt], "pair": [rt]}."""
+    from rgbd360_tpu.calibration import solver
+
+    log = {"rig": [], "pair": []}
+    saved = {k: getattr(solver, c).calibrate for k, c in (("rig", "RigCalibrator"),
+                                                          ("pair", "PairCalibrator"))}
+
+    def wrap(key):
+        def recorded(self, *a, **kw):
+            rt, diag = saved[key](self, *a, **kw)
+            log[key].append(np.asarray(rt, np.float64))
+            return rt, diag
+        return recorded
+
+    solver.RigCalibrator.calibrate = wrap("rig")
+    solver.PairCalibrator.calibrate = wrap("pair")
+    try:
+        yield log
+    finally:
+        solver.RigCalibrator.calibrate = saved["rig"]
+        solver.PairCalibrator.calibrate = saved["pair"]
+
+
+def parse_eval(text: str) -> np.ndarray:
+    """`calibrate eval`'s table as rows (a, b, n, conditioning, rot, trans)."""
+    import re
+
+    rows = []
+    for line in text.splitlines():
+        m = re.match(r"\((\d+),(\d+)\)\s+(\d+)\s+(\S+)\s+(\S+)\s+(\S+)", line.strip())
+        if m:
+            rows.append([float(g) for g in m.groups()])
+    return np.asarray(rows, np.float64).reshape(-1, 6)
+
+
+def calibrate_jax(paths: dict, cfg, tmp) -> dict:
+    """The reference `apps.calibrate.main` sub-commands over the files phase
+    m writes: `collect` over the loop (`cal_cp`, the control planes' rows),
+    `solve` seeded from the perturbed extrinsics (`cal_solve_rt`), `pair`
+    and `fim` of CAL_PAIR (`cal_pair_rt`, `cal_fim`), `eval`
+    (`cal_eval`, its table), `online --sensors` CAL_PAIR (`cal_online_rt`),
+    `tof` (`cal_tof_rt`, `cal_tof_corresp`) and `laser` (`cal_laser_rt`)."""
+    import io
+
+    import chip_smoke as C
+    from rgbd360_tpu.apps import calibrate
+
+    tmp = pathlib.Path(tmp)
+    calib = ["--calib", str(paths["calib"]), "--no-intrinsics"]
+    cp = str(tmp / "cp.txt")
+    pair = [str(v) for v in C.CAL_PAIR]
+    C.write_perturbed_calibration(tmp / "pert", cfg.rig)
+    ins = C.write_tof_laser_inputs(tmp / "extras")
+    out = {}
+    with reference_apps(cfg), recorded_calibrations() as log:
+        calibrate.main(["collect", str(paths["loop"]), "--out", cp] + calib)
+        out["cal_cp"] = np.loadtxt(cp)
+        calibrate.main(["solve", cp, "--calib", str(tmp / "pert"), "--no-intrinsics"])
+        out["cal_solve_rt"] = log["rig"][-1]
+        calibrate.main(["pair", cp, "--sensors", *pair] + calib)
+        out["cal_pair_rt"] = log["pair"][-1]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            calibrate.main(["eval", cp] + calib)
+        out["cal_eval"] = parse_eval(buf.getvalue())
+        out["cal_fim"] = calibrate.main(["fim", cp, "--sensors", *pair] + calib)
+        out["cal_online_rt"] = calibrate.main(
+            ["online", str(paths["loop"]), "--sensors", *pair, "--threshold-conditioning",
+             "100000"] + calib)
+        co = str(tmp / "corresp.txt")
+        out["cal_tof_rt"] = np.asarray(calibrate.main(
+            ["tof", str(ins["tof"]), "--corresp-out", co]), np.float64)
+        out["cal_tof_corresp"] = np.loadtxt(co)
+        out["cal_laser_rt"] = calibrate.main(
+            ["laser", str(ins["laser"]), "--planes", str(ins["planes"]), "--guess",
+             str(ins["guess"])] + calib)
+    return out
+
+
+def labelize_jax(paths: dict, cfg, tmp) -> dict:
+    """The reference `apps.labelize.main`: `apply` LABELS to the walk's
+    frame LABEL_FRAME, `propagate` over the walk, then
+    `label_statistics` per level (`label_stats`, a JSON string)."""
+    import json
+
+    import chip_smoke as C
+    from rgbd360_tpu.apps import labelize
+    from rgbd360_tpu.slam.labeling import LabelStore, label_statistics
+
+    tmp = pathlib.Path(tmp)
+    store, labels = str(tmp / "store.json"), tmp / "labels.json"
+    labels.write_text(json.dumps(C.LABELS))
+    calib = ["--calib", str(paths["calib"]), "--no-intrinsics"]
+    with reference_apps(cfg):
+        labelize.main(["apply", str(paths["walk"]), "--frame", str(C.LABEL_FRAME), "--labels",
+                       str(labels), "--store", store] + calib)
+        labelize.main(["propagate", str(paths["walk"]), "--store", store] + calib)
+    st = LabelStore.load(store)
+    return {"label_stats": np.asarray(json.dumps(
+        {lv: label_statistics(st, lv) for lv in ("plane", "object", "context")}))}
+
+
+def ransac_jax() -> dict:
+    """The reference's RANSAC core on `chip_smoke.ransac_scene()` with its
+    own index triples (`ransac_idx`, drawn as `_ransac_plane_core` draws
+    them from PRNGKey(0)): the winning plane, count and inlier mask
+    (`ransac_n`, `ransac_d`, `ransac_count`, `ransac_inliers`); and the
+    public `ransac_plane` (`ransac_plane_n`, `ransac_plane_d`)."""
+    import chip_smoke as C
+    from rgbd360_tpu.ops import ransac as R
+
+    pts = jnp.asarray(C.ransac_scene())
+    valid = jnp.ones(pts.shape[0], bool)
+    key = jax.random.PRNGKey(0)
+    idx = jax.random.randint(key, (C.RANSAC_HYPOTHESES, 3), 0, pts.shape[0])
+    n, d, count = R._ransac_plane_core(pts, valid, key, jnp.float32(0.03), C.RANSAC_HYPOTHESES)
+    inl = np.asarray((jnp.abs(pts @ n + d) < 0.03) & valid)
+    pn, pd, _ = R.ransac_plane(np.asarray(pts), dist_threshold=0.03)
+    return {"ransac_idx": np.asarray(idx, np.int32), "ransac_n": np.asarray(n),
+            "ransac_d": np.float32(d), "ransac_count": np.int64(count), "ransac_inliers": inl,
+            "ransac_plane_n": pn, "ransac_plane_d": np.float64(pd)}
+
+
+def extras_jax(paths: dict, subsample: int = 1, pyramid_levels: int = 5,
+               n_jitters: int = REG_JITTERS) -> dict:
+    """Everything `extras_golden.npz` holds (see the module doc), over the
+    inputs `synthetic.write_app_inputs` writes at `subsample`."""
+    import tempfile
+
+    from rgbd360_tpu.io.bin_format import read_rig_frame
+
+    cfg = synthetic.config(subsample, pyramid_levels)
+    walk = sorted(paths["walk"].glob("sphere_images_*.bin"),
+                  key=lambda p: int(p.stem.rsplit("_", 1)[1]))
+    out = stitch_sample_jax(cfg, read_rig_frame(walk[0]))
+    out.update(odometry_refined_jax(paths, cfg, n_jitters))
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(calibrate_jax(paths, cfg, tmp))
+        out.update(labelize_jax(paths, cfg, tmp))
+    out.update(ransac_jax())
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=6, help="frames of the slice")
@@ -907,8 +1142,23 @@ def main(argv=None) -> None:
                       help="write only apps_golden.npz")
     only.add_argument("--registration-only", action="store_true",
                       help="write only registration_golden.npz")
+    only.add_argument("--extras-only", action="store_true",
+                      help="write only extras_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if args.extras_only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            res = extras_jax(synthetic.write_app_inputs(tmp))
+        np.savez_compressed(out_dir / "extras_golden.npz", **res)
+        print(f"wrote {out_dir / 'extras_golden.npz'}")
+        for k in ("stitch_err_plain", "stitch_err_refined", "stitch_cov_plain",
+                  "stitch_cov_refined", "label_stats", "ransac_count"):
+            print(k, res[k])
+        print("odometry --parallax-refine axial steps (m):", res["odo_steps"][:, 0, 3].tolist())
+        print("control planes:", len(res["cal_cp"]), "eval:", res["cal_eval"].tolist())
+        return
     if args.registration_only:
         import tempfile
 

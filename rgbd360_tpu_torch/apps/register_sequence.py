@@ -9,15 +9,22 @@ co-visibility, and export the trajectory and the areas.
 
 Usage:
     python -m rgbd360_tpu_torch.apps.register_sequence DATASET_DIR --calib CALIB_DIR
-        [--out DIR] [--window 2] [--device cpu]
+        [--out DIR] [--window 2] [--sharded] [--device cpu]
+    torchrun --nproc-per-node N -m rgbd360_tpu_torch.apps.register_sequence ... --sharded
 
 It runs on the CUDA device unless `--device` names another.  `--sharded`
-(the mesh-sharded optimizer) is not ported yet and raises.
+solves the graph with the edge-sharded distributed optimizer
+(`parallel.sharded.distributed_pose_graph`) over every rank of the job: a
+world of one when started plainly, the torchrun job's ranks otherwise, each
+on card LOCAL_RANK (unless `--device` names one) in an NCCL process group
+(gloo with `--device cpu`).  Every rank registers the whole sequence;
+rank 0 writes `--out`.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 import numpy as np
@@ -34,10 +41,11 @@ from rgbd360_tpu_torch.apps._common import (
 BATCH_SIZE = 4
 
 
-def run(ds, builder, window: int = 2, out=None):
+def run(ds, builder, window: int = 2, out=None, mesh=None):
     """Register the frames of `ds` (a `SequenceDataset`) on the builder's
-    device and optimize their graph: returns (trajectory (N, 4, 4), area
-    labels (N,)), and with `out` writes `trajectory.txt` and `areas.txt`."""
+    device and optimize their graph (sharded over `mesh`'s ranks when
+    given): returns (trajectory (N, 4, 4), area labels (N,)), and with
+    `out` writes `trajectory.txt` and `areas.txt` (rank 0 of a mesh)."""
     from rgbd360_tpu_torch.core.frame import RigFrame, SphereFrame
     from rgbd360_tpu_torch.registration import dense as D
     from rgbd360_tpu_torch.registration.planes import PLANAR_3DOF, PlaneRegistration
@@ -106,7 +114,12 @@ def run(ds, builder, window: int = 2, out=None):
         info=on_device(info),
         emask=torch.arange(e_cap, device=device) < len(edges),
     )
-    poses, chi2, iters = optimize_pose_graph(g)
+    if mesh is not None:
+        from rgbd360_tpu_torch.parallel.sharded import distributed_pose_graph
+
+        poses, chi2, iters = distributed_pose_graph(mesh, g)
+    else:
+        poses, chi2, iters = optimize_pose_graph(g)
     print(f"graph: {n} vertices, {len(edges)} edges, chi2={float(chi2):.4f} "
           f"({int(iters)} LM iters)")
 
@@ -118,7 +131,7 @@ def run(ds, builder, window: int = 2, out=None):
     print(f"areas: {labels.max() + 1} -> {labels.tolist()}")
 
     traj = poses[:n].cpu().numpy()
-    if out:
+    if out and (mesh is None or mesh.rank == 0):
         outdir = Path(out)
         outdir.mkdir(parents=True, exist_ok=True)
         save_trajectory_txt(outdir / "trajectory.txt", traj)
@@ -127,28 +140,46 @@ def run(ds, builder, window: int = 2, out=None):
     return traj, labels
 
 
-def main(argv=None):
+def main(argv=None, builder=None):
+    """Parse `argv` and run; a given `builder` replaces the one made from
+    `--calib` (and its device `--device`)."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("dataset")
     p.add_argument("--out", default=None)
     p.add_argument("--window", type=int, default=2,
                    help="register each frame to this many predecessors")
     p.add_argument("--sharded", action="store_true",
-                   help="use the mesh-sharded distributed optimizer (not ported yet)")
+                   help="use the mesh-sharded distributed optimizer over the job's ranks")
     add_calib_args(p)
     add_device_arg(p)
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "register_sequence --sharded waits for ROADMAP section 1.6 "
-            "(parallel/sharded.py: distributed_pose_graph)"
-        )
 
     from rgbd360_tpu_torch.core.frame import FrameBuilder
     from rgbd360_tpu_torch.io.dataset import SequenceDataset
 
-    builder = FrameBuilder(load_calib(args), frame_config(args), device=args.device)
-    return run(SequenceDataset(args.dataset), builder, window=args.window, out=args.out)
+    device = args.device if builder is None else str(builder.sensor.device)
+    mesh, joined = None, False
+    if args.sharded:
+        from rgbd360_tpu_torch.parallel import multihost
+        from rgbd360_tpu_torch.parallel.sharded import make_mesh
+
+        if device is None and os.environ.get("LOCAL_RANK"):
+            device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+        on_cpu = device is not None and torch.device(device).type == "cpu"
+        if device is not None and not on_cpu and torch.device(device).index is not None:
+            torch.cuda.set_device(torch.device(device))
+        # a process group of the caller's stays the caller's to end
+        joined = not torch.distributed.is_initialized() and multihost.initialize(
+            backend="gloo" if on_cpu else "nccl")
+        mesh = make_mesh(device=device)
+    if builder is None:
+        builder = FrameBuilder(load_calib(args), frame_config(args), device=device)
+    try:
+        return run(SequenceDataset(args.dataset), builder, window=args.window,
+                   out=args.out, mesh=mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -80,9 +80,7 @@ def refine_pair_rotation(
     zero = torch.zeros(3, device=device)
 
     def residuals(rotvec, r_base):
-        # so3_exp of a (1, 3) batch: under `jacfwd` its 0-dim branch
-        # selections would promote the tangents to float64
-        r = se3.so3_exp(rotvec[None])[0] @ r_base
+        r = se3.so3_exp(rotvec) @ r_base
         return ((n_a - n_b @ r.T) * sw).reshape(-1)
 
     r = _f32(r0, device)

@@ -3,10 +3,12 @@
 
 Replaces the reference's sensor-grabber + file-walk loops (e.g.
 `SLAM/SphereGraphSLAM.cpp:150` iterates `fexists(path/sphere_images_%d.bin)`)
-with an indexable dataset that decodes frames with the pure-Python parser
-(`io.bin_format`) and optionally prefetches decode work on a background
-thread, so host I/O overlaps device compute.  The reference's native C++
-decoder (`native/loader.cpp`) is not used here.
+with an indexable dataset that decodes frames with the native decoder
+(`io.native`, built from `rgbd360_tpu_torch/native/loader.cpp` at first use;
+a failed build raises) or, `SequenceDataset(native=False)` only, the
+pure-Python parser (`io.bin_format`, the reference the tests hold the
+decoder to), and optionally prefetches decode work on a background
+thread, so host I/O overlaps device compute.
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ import queue
 from pathlib import Path
 from typing import Iterator
 
+from rgbd360_tpu_torch.io import native as native_io
 from rgbd360_tpu_torch.io.bin_format import RawRigFrame, read_rig_frame
-
-_decode = read_rig_frame
 
 
 class SequenceDataset:
@@ -31,8 +32,9 @@ class SequenceDataset:
 
     _PAT = re.compile(r"sphere_images_(\d+)\.bin$")
 
-    def __init__(self, root: str | Path, prefetch: int = 2):
+    def __init__(self, root: str | Path, prefetch: int = 2, native: bool = True):
         self.root = Path(root)
+        self._decode = native_io.read_rig_frame if native else read_rig_frame
         found = []
         for p in sorted(self.root.glob("sphere_images_*.bin")):
             m = self._PAT.search(p.name)
@@ -47,12 +49,12 @@ class SequenceDataset:
         return len(self.paths)
 
     def __getitem__(self, i: int) -> RawRigFrame:
-        return _decode(self.paths[i])
+        return self._decode(self.paths[i])
 
     def __iter__(self) -> Iterator[RawRigFrame]:
         if self.prefetch <= 0 or len(self) <= 1:
             for p in self.paths:
-                yield _decode(p)
+                yield self._decode(p)
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
@@ -62,7 +64,7 @@ class SequenceDataset:
             try:
                 for p in self.paths:
                     try:
-                        item = _decode(p)
+                        item = self._decode(p)
                     except Exception as exc:  # propagate to the consumer
                         item = ("__error__", exc)
                     while not cancelled.is_set():
@@ -150,7 +152,7 @@ class StreamingDataset:
                 size = -1
             if size > 0 and size == last_size:
                 try:
-                    return _decode(path)
+                    return native_io.read_rig_frame(path)
                 except Exception:
                     # mid-write torn read: fall through and re-poll
                     pass

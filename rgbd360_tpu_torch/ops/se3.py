@@ -30,9 +30,17 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device).expand(like.shape)
 
 
+def _theta2(w: torch.Tensor) -> torch.Tensor:
+    """|w|^2 with its reduced axis kept, shape (..., 1, 1).  Never 0-dim:
+    under `torch.func.jacfwd` a 0-dim tensor combined with a Python float
+    promotes the tangents to float64, so a single vector's Jacobian would
+    leave its input's dtype."""
+    return torch.sum(w * w, dim=-1, keepdim=True)[..., None]
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula, numerically stable near 0."""
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _theta2(w)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     wx = skew(w)
     wx2 = wx @ wx
@@ -40,7 +48,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     b = (1.0 - torch.cos(theta)) / theta2.clamp(min=_EPS * _EPS)
     a = torch.where(theta2 > _EPS, a, 1.0 - theta2 / 6.0)
     b = torch.where(theta2 > _EPS, b, 0.5 - theta2 / 24.0)
-    return _eye3(wx) + a[..., None, None] * wx + b[..., None, None] * wx2
+    return _eye3(wx) + a * wx + b * wx2
 
 
 def _vee_asym(r: torch.Tensor) -> torch.Tensor:
@@ -81,7 +89,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 
 
 def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _theta2(w)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     wx = skew(w)
     wx2 = wx @ wx
@@ -89,7 +97,7 @@ def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     c = (theta - torch.sin(theta)) / (theta2 * theta).clamp(min=_EPS * _EPS * _EPS)
     b = torch.where(theta2 > _EPS, b, 0.5 - theta2 / 24.0)
     c = torch.where(theta2 > _EPS, c, 1.0 / 6.0 - theta2 / 120.0)
-    return _eye3(wx) + b[..., None, None] * wx + c[..., None, None] * wx2
+    return _eye3(wx) + b * wx + c * wx2
 
 
 def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

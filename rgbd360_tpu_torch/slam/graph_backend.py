@@ -4,11 +4,12 @@
 Mirrors the reference's standalone `GraphOptimization/` subsystem (abstract
 `GraphOptimizer` with `addVertex / addEdge / optimizeGraph / getPoses /
 saveGraph`, reference `GraphOptimization/GraphOptimizer.h` and its MRPT/G2O
-implementations): an incremental builder API over the batched solver.  The
-port ships the single-device LM backend (`backend="dense"`); the
-mesh-sharded one (`backend="sharded"`) raises NotImplementedError until
-`parallel/sharded.py` is ported (ROADMAP section 1.6).  The g2o text reader
-and writer are host numpy, copied from the reference.
+implementations): an incremental builder API over the batched solver:
+the single-device LM (`backend="dense"`) or the edge-sharded LM over a mesh
+of ranks (`backend="sharded"`, `parallel.sharded.distributed_pose_graph`;
+the job's mesh when none is given, a world of one outside
+`torch.distributed`).  The g2o text reader and writer are host numpy,
+copied from the reference.
 """
 
 from __future__ import annotations
@@ -37,12 +38,8 @@ class GraphOptimizerBackend:
     ):
         if backend not in ("dense", "sharded"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "sharded" or mesh is not None:
-            raise NotImplementedError(
-                'GraphOptimizerBackend(backend="sharded") and mesh= wait for ROADMAP '
-                "section 1.6 (parallel/sharded.py: distributed_pose_graph)"
-            )
         self.backend = backend
+        self.mesh = mesh
         self.max_iters = max_iters
         self.graph = PoseGraph.empty(max_vertices, max_edges, resolve_device(device))
         self.n_vertices = 0
@@ -70,8 +67,14 @@ class GraphOptimizerBackend:
         return e
 
     def optimize(self):
-        """Run the solver; returns (chi2, iterations)."""
-        poses, chi2, iters = optimize_pose_graph(self.graph, self.max_iters)
+        """Run the configured solver; returns (chi2, iterations)."""
+        if self.backend == "sharded":
+            from rgbd360_tpu_torch.parallel.sharded import distributed_pose_graph, make_mesh
+
+            mesh = self.mesh or make_mesh()
+            poses, chi2, iters = distributed_pose_graph(mesh, self.graph, self.max_iters)
+        else:
+            poses, chi2, iters = optimize_pose_graph(self.graph, self.max_iters)
         self.graph.poses.copy_(poses)
         return float(chi2), int(iters)
 

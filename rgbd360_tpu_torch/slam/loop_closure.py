@@ -27,7 +27,7 @@ from rgbd360_tpu_torch.config import FrameworkConfig
 from rgbd360_tpu_torch.ops import se3
 from rgbd360_tpu_torch.ops.segmentation import PlaneSet
 from rgbd360_tpu_torch.registration import dense as D
-from rgbd360_tpu_torch.registration.planes import match_against_keyframes
+from rgbd360_tpu_torch.registration.planes import PLANAR_3DOF, match_against_keyframes
 from rgbd360_tpu_torch.slam.topological import (
     MAX_AREAS_DEVICE,
     _clamp_areas,
@@ -113,12 +113,14 @@ class LoopClosure:
 
 class LoopCloser:
     def __init__(self, config: FrameworkConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the keyframe-sharded plane scan (mesh=) waits for ROADMAP P8 "
-                "(parallel/sharded.py)"
-            )
+        """`mesh`: optional `parallel.sharded.Mesh`.  When given, the batch
+        plane matcher runs keyframe-sharded over its ranks
+        (`parallel.sharded.sharded_plane_scan`, the results gathered on
+        every rank); the map's keyframe capacity must divide by the mesh
+        size (Map360's power-of-two capacities stay divisible as the map
+        grows)."""
         self.config = config
+        self.mesh = mesh
         verify_cfg = (
             dataclasses.replace(
                 config.dense,
@@ -154,6 +156,12 @@ class LoopCloser:
     def _batch_match_impl(self, query: PlaneSet, map_planes: PlaneSet, gate):
         """The plane matcher over all keyframes; per keyframe (n_matches,
         matched_area, pose, info, observable)."""
+        if self.mesh is not None:
+            from rgbd360_tpu_torch.parallel.sharded import sharded_plane_scan
+
+            return sharded_plane_scan(
+                self.mesh, map_planes, query, gate, self.config.matcher, PLANAR_3DOF
+            )
         return match_against_keyframes(map_planes, query, gate, self.config.matcher)
 
     def kf_pyramid(self, map360, k: int, cache: dict | None = None):

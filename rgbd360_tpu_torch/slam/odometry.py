@@ -33,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rgbd360_tpu_torch.config import FrameworkConfig
 from rgbd360_tpu_torch.core.frame import FrameBuilder, RigFrame, SphereFrame
@@ -94,9 +95,14 @@ class TrackerBase:
     applied effects) while a new keyframe ENQUEUES its event instead of
     draining the previous one.  A phase is ready when a `torch.cuda.Event`
     recorded after its last launch has completed (`Event.query()`); on the
-    CPU a phase is ready at once.  The reference's fixed polling cadence for
-    multi-process runs is not ported (it exists for the sharded path, see
-    `KeyframeSLAM`)."""
+    CPU a phase is ready at once.  In a multi-process run (a
+    `torch.distributed` world of more than one rank) readiness is never
+    consulted: it can differ between ranks, and a rank that advances an
+    event on another frame than its peers dispatches the event's
+    collectives (the sharded scan, the distributed solve) out of step with
+    them, a deadlock.  The head event then advances one phase at every
+    `kf.det_poll_cadence`-th poll site instead, a schedule that depends on
+    the frame stream alone and so is the same on every rank."""
 
     def __init__(self, builder: FrameBuilder, config: FrameworkConfig | None = None):
         self.config = config or builder.config
@@ -121,6 +127,10 @@ class TrackerBase:
         # every dispatch is attributed to the event that issued it
         self._cur_counter = [0]
         self.kf_event_dispatches: list[int] = []
+        # the deterministic poll schedule of a multi-process run (see the
+        # class doc) and its poll-site counter
+        self._deterministic_polls = dist.is_initialized() and dist.get_world_size() > 1
+        self._poll_counter = 0
 
     @property
     def device(self) -> torch.device:
@@ -160,7 +170,15 @@ class TrackerBase:
         """Advance the deferred keyframe-event queue, HEAD event only: to
         the next phase whenever the head's awaited tensors are ready, so
         tracked frames interleave with the event instead of blocking on it.
-        `block=True` runs the whole queue to completion (drain)."""
+        `block=True` runs the whole queue to completion (drain).  In a
+        multi-process run the head advances one phase at every
+        `kf.det_poll_cadence`-th poll site, whatever is ready."""
+        self._poll_counter += 1
+        if self._deterministic_polls and not block:
+            cadence = max(1, self.config.kf.det_poll_cadence)
+            if self._pending and self._poll_counter % cadence == 0:
+                self._advance_head()
+            return
         while self._pending:
             _, struct, _, marker = self._pending[0]
             if struct is not None and not block and not self._phase_ready(marker):
@@ -433,7 +451,7 @@ def _connection_kernel(opt_poses, n_kf, area, n_areas, edges_ij, emask, k: int, 
 
 class KeyframeSLAM(TrackerBase):
     """Keyframe SLAM with dense tracking, loop closure and pose-graph
-    optimization, on one device.
+    optimization, on one device or (`mesh`) sharded over ranks.
 
     A tracked frame is `build_full` -> `PlaneRegistration.register` against
     the keyframe -> `DenseAligner.align` from the motion-model seed, with
@@ -448,18 +466,26 @@ class KeyframeSLAM(TrackerBase):
     by `_post_keyframe`, so its first phase sees exactly the map that fused
     program would, and the generator's phase A is the only one here.
 
-    `mesh=` (the reference's keyframe-sharded loop-closure scan and
-    distributed pose-graph PCG) is not ported: it raises
-    NotImplementedError until `parallel/sharded.py` is (ROADMAP P8)."""
+    `mesh`: optional `parallel.sharded.Mesh`.  When given, the map-scale
+    stages of this loop run sharded over its ranks: the loop closer's and
+    the relocaliser's plane scans by keyframe index
+    (`parallel.sharded.sharded_plane_scan`) and the pose-graph solve as
+    edge- and vertex-sharded matrix-free LM-PCG
+    (`parallel.sharded.distributed_pose_graph_pcg`).  Every rank runs the
+    same tracker on the same frames (tracking one pair stays replicated)
+    and holds the same map.  The map capacities must divide by the mesh
+    size (the power-of-two defaults and the doubling growth keep them
+    divisible)."""
 
     def __init__(self, builder: FrameBuilder, config: FrameworkConfig | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "KeyframeSLAM(mesh=) waits for ROADMAP P8 (parallel/sharded.py: the "
-                "sharded plane scan and distributed_pose_graph_pcg)"
-            )
         super().__init__(builder, config)
         cfg = self.config
+        self.mesh = mesh
+        if mesh is not None and (cfg.map.max_keyframes % mesh.size or cfg.map.max_edges % mesh.size):
+            raise ValueError(
+                f"map capacities ({cfg.map.max_keyframes} KFs, {cfg.map.max_edges} edges) "
+                f"must divide by the mesh size ({mesh.size})"
+            )
         self.map = self._empty_map()
         # connection aligns start `kf.connection_coarse_level` pyramid
         # levels below full resolution: one level down is 4x fewer rows at
@@ -477,8 +503,8 @@ class KeyframeSLAM(TrackerBase):
             if self._conn_level > 0
             else self.aligner
         )
-        self.loop_closer = LoopCloser(cfg)
-        self.relocalizer = Relocalizer(cfg)
+        self.loop_closer = LoopCloser(cfg, mesh=mesh)
+        self.relocalizer = Relocalizer(cfg, mesh=mesh)
         self._reset_state()
 
     def _empty_map(self) -> Map360:
@@ -506,6 +532,7 @@ class KeyframeSLAM(TrackerBase):
         self._n_edges_host = 0
         self._area_host: list[int] = []
         self._pending.clear()
+        self._poll_counter = 0
         self._cur_counter = [0]
         self.kf_event_dispatches = []
         self.pose = np.eye(4)  # current frame world pose
@@ -715,11 +742,18 @@ class KeyframeSLAM(TrackerBase):
 
     def _optimize_dispatch(self):
         """The pose-graph solve; returns (poses, chi2) on the device and the
-        iteration count.  The solver is chosen by the map's CAPACITY: dense
-        LM up to `graph.pcg_threshold_kf` keyframes, matrix-free LM-PCG
-        beyond."""
+        iteration count.  With a mesh, the distributed LM-PCG; otherwise
+        the solver is chosen by the map's CAPACITY: dense LM up to
+        `graph.pcg_threshold_kf` keyframes, matrix-free LM-PCG beyond."""
         g = self.config.graph
         loop_mask = self.map.edge_is_lc if g.robust_lc else None
+        if self.mesh is not None:
+            from rgbd360_tpu_torch.parallel.sharded import distributed_pose_graph_pcg
+
+            return distributed_pose_graph_pcg(
+                self.mesh, self.map.graph, max_iters=g.max_iters, lm_lambda0=g.lm_lambda0,
+                lm_step=g.lm_step, loop_mask=loop_mask, dcs_phi=g.dcs_phi,
+            )
         if self.map.kf_capacity > g.pcg_threshold_kf:
             return optimize_pose_graph_pcg(
                 self.map.graph, g.max_iters, lm_lambda0=g.lm_lambda0, lm_step=g.lm_step,

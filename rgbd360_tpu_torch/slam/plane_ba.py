@@ -108,11 +108,18 @@ def _onehot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _normal_blocks(poses, planes, prob, lam):
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _normal_blocks(poses, planes, prob, lam, reduce=_identity):
     """All GN blocks needed by the Schur solve: per-observation Jacobians,
     the incidence matrices `s_p` (O, N) and `s_l` (O, M), residual
     gradients b_p (N, 6) / b_l (M, 4), the damped block diagonals hpp
-    (N, 6, 6) and hll_inv (M, 4, 4), and chi2."""
+    (N, 6, 6) and hll_inv (M, 4, 4), and chi2.  `reduce` sums the
+    observation sums over the shards of an observation-sharded problem
+    (ONE call for all of them; the identity on one device) and is kept in
+    the blocks for the matvecs."""
     n = poses.shape[0]
     m = planes.shape[0]
     dtype = poses.dtype
@@ -121,10 +128,16 @@ def _normal_blocks(poses, planes, prob, lam):
     s_l = _onehot(prob.obs_pl, m, dtype)
     wj = w[:, None, None]
 
-    hpp = (s_p.mT @ (wj * jp.mT @ jp).reshape(-1, 36)).reshape(n, 6, 6)
-    hll = (s_l.mT @ (wj * jl.mT @ jl).reshape(-1, 16)).reshape(m, 4, 4)
-    b_p = s_p.mT @ (w[:, None] * (jp.mT @ r[..., None])[..., 0])
-    b_l = s_l.mT @ (w[:, None] * (jl.mT @ r[..., None])[..., 0])
+    sums = reduce(torch.cat([
+        (s_p.mT @ (wj * jp.mT @ jp).reshape(-1, 36)).reshape(-1),
+        (s_l.mT @ (wj * jl.mT @ jl).reshape(-1, 16)).reshape(-1),
+        (s_p.mT @ (w[:, None] * (jp.mT @ r[..., None])[..., 0])).reshape(-1),
+        (s_l.mT @ (w[:, None] * (jl.mT @ r[..., None])[..., 0])).reshape(-1),
+        chi2.reshape(1),
+    ]))
+    hpp, hll, b_p, b_l, chi2 = torch.split(sums, [36 * n, 16 * m, 6 * n, 4 * m, 1])
+    hpp, hll = hpp.reshape(n, 6, 6), hll.reshape(m, 4, 4)
+    b_p, b_l, chi2 = b_p.reshape(n, 6), b_l.reshape(m, 4), chi2[0]
 
     # gauge prior on pose 0 + floor so empty poses/planes stay invertible
     eye6 = torch.eye(6, dtype=dtype, device=poses.device)
@@ -136,7 +149,7 @@ def _normal_blocks(poses, planes, prob, lam):
     hll = hll + lam * hll * eye4
     hll_inv = torch.linalg.inv(hll)
     return dict(jp=jp, jl=jl, w=w, s_p=s_p, s_l=s_l, i=prob.obs_kf, k=prob.obs_pl,
-                hpp=hpp, hll_inv=hll_inv, b_p=b_p, b_l=b_l, chi2=chi2)
+                hpp=hpp, hll_inv=hll_inv, b_p=b_p, b_l=b_l, chi2=chi2, reduce=reduce)
 
 
 def _bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -146,12 +159,16 @@ def _bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _hlp(t, x):
     """H_lp x (M, 4): per observation jl^T (jp x_i), summed by plane."""
-    return t["s_l"].mT @ (t["w"][:, None] * _bmv(t["jl"].mT, _bmv(t["jp"], x[t["i"]])))
+    return t["reduce"](
+        t["s_l"].mT @ (t["w"][:, None] * _bmv(t["jl"].mT, _bmv(t["jp"], x[t["i"]])))
+    )
 
 
 def _hpl(t, y_l):
     """H_pl y_l (N, 6): per observation jp^T (jl y_k), summed by pose."""
-    return t["s_p"].mT @ (t["w"][:, None] * _bmv(t["jp"].mT, _bmv(t["jl"], y_l[t["k"]])))
+    return t["reduce"](
+        t["s_p"].mT @ (t["w"][:, None] * _bmv(t["jp"].mT, _bmv(t["jl"], y_l[t["k"]])))
+    )
 
 
 def _schur_matvec(t, x):
@@ -195,6 +212,42 @@ def _pcg(matvec, precond, b, iters: int, tol: float):
     return x, it
 
 
+def _solve(prob, max_iters, cg_iters, cg_tol, lm_lambda0, lm_step, reduce=_identity):
+    """The LM loop of `optimize_plane_ba` over the observations of `prob`,
+    their sums taken through `reduce` (see `_normal_blocks`): the identity
+    here, a psum over the mesh in `parallel.sharded.distributed_plane_ba`.
+    Every quantity the loop and the CG test read is reduced, so all shards
+    take the same steps."""
+    poses, planes = prob.poses, prob.planes
+    lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
+    chi2 = reduce(_obs_terms(poses, planes, prob)[4])
+    iters, done = 0, False
+    while iters < max_iters and not done:
+        t = _normal_blocks(poses, planes, prob, lam, reduce)
+        hpp_inv = torch.linalg.inv(t["hpp"])
+        dx_p, _ = _pcg(
+            lambda x: _schur_matvec(t, x),
+            lambda r: _bmv(hpp_inv, r),
+            _schur_rhs(t), cg_iters, cg_tol,
+        )
+        dx_l = _back_substitute(t, dx_p)
+        new_poses = se3.se3_exp(dx_p) @ poses
+        new_planes = planes + dx_l
+        # renormalize plane normals (4-dof overparametrized update)
+        norm = torch.clamp(torch.linalg.norm(new_planes[:, :3], dim=1, keepdim=True), min=1e-9)
+        new_planes = torch.cat([new_planes[:, :3] / norm, new_planes[:, 3:] / norm], dim=1)
+        chi2_new = reduce(_obs_terms(new_poses, new_planes, prob)[4])
+        improved = chi2_new < t["chi2"]
+        rel_impr = (t["chi2"] - chi2_new) / torch.clamp(t["chi2"], min=1e-12)
+        poses = torch.where(improved, new_poses, poses)
+        planes = torch.where(improved, new_planes, planes)
+        lam = torch.where(improved, lam / lm_step, lam * lm_step)
+        chi2 = torch.where(improved, chi2_new, t["chi2"])
+        iters += 1
+        done = bool(improved & (rel_impr < 1e-8))
+    return poses, planes, chi2, iters
+
+
 def optimize_plane_ba(
     prob: PlaneBAProblem,
     max_iters: int = 10,
@@ -208,34 +261,7 @@ def optimize_plane_ba(
     Returns (poses, planes, chi2, iters): tensors on the problem's device
     and a Python int.  Pose 0 is the gauge.  One host sync per LM
     iteration (its exit test) and per CG iteration."""
-    poses, planes = prob.poses, prob.planes
-    lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
-    chi2 = _obs_terms(poses, planes, prob)[4]
-    iters, done = 0, False
-    while iters < max_iters and not done:
-        t = _normal_blocks(poses, planes, prob, lam)
-        hpp_inv = torch.linalg.inv(t["hpp"])
-        dx_p, _ = _pcg(
-            lambda x: _schur_matvec(t, x),
-            lambda r: _bmv(hpp_inv, r),
-            _schur_rhs(t), cg_iters, cg_tol,
-        )
-        dx_l = _back_substitute(t, dx_p)
-        new_poses = se3.se3_exp(dx_p) @ poses
-        new_planes = planes + dx_l
-        # renormalize plane normals (4-dof overparametrized update)
-        norm = torch.clamp(torch.linalg.norm(new_planes[:, :3], dim=1, keepdim=True), min=1e-9)
-        new_planes = torch.cat([new_planes[:, :3] / norm, new_planes[:, 3:] / norm], dim=1)
-        chi2_new = _obs_terms(new_poses, new_planes, prob)[4]
-        improved = chi2_new < t["chi2"]
-        rel_impr = (t["chi2"] - chi2_new) / torch.clamp(t["chi2"], min=1e-12)
-        poses = torch.where(improved, new_poses, poses)
-        planes = torch.where(improved, new_planes, planes)
-        lam = torch.where(improved, lam / lm_step, lam * lm_step)
-        chi2 = torch.where(improved, chi2_new, t["chi2"])
-        iters += 1
-        done = bool(improved & (rel_impr < 1e-8))
-    return poses, planes, chi2, iters
+    return _solve(prob, max_iters, cg_iters, cg_tol, lm_lambda0, lm_step)
 
 
 def associate_planes(

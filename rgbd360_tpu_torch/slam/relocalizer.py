@@ -16,7 +16,7 @@ import torch
 
 from rgbd360_tpu_torch.config import FrameworkConfig
 from rgbd360_tpu_torch.ops.segmentation import PlaneSet
-from rgbd360_tpu_torch.registration.planes import match_against_keyframes
+from rgbd360_tpu_torch.registration.planes import PLANAR_3DOF, match_against_keyframes
 from rgbd360_tpu_torch.utils.host import fetch
 
 
@@ -32,14 +32,19 @@ class RelocalizationResult:
 
 class Relocalizer:
     def __init__(self, config: FrameworkConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the keyframe-sharded plane scan (mesh=) waits for ROADMAP P8 "
-                "(parallel/sharded.py)"
-            )
+        """`mesh`: optional `parallel.sharded.Mesh`; the brute-force scan
+        over all map keyframes then shards by keyframe index
+        (`parallel.sharded.sharded_plane_scan`)."""
         self.config = config
+        self.mesh = mesh
 
     def _batch_impl(self, map_planes: PlaneSet, query: PlaneSet, gate):
+        if self.mesh is not None:
+            from rgbd360_tpu_torch.parallel.sharded import sharded_plane_scan
+
+            return sharded_plane_scan(
+                self.mesh, map_planes, query, gate, self.config.matcher, PLANAR_3DOF
+            )
         return match_against_keyframes(map_planes, query, gate, self.config.matcher)
 
     @staticmethod

@@ -38,10 +38,12 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.config",
     "rgbd360_tpu_torch.convert",
     "rgbd360_tpu_torch.core.frame",
+    "rgbd360_tpu_torch.entry",
     "rgbd360_tpu_torch.io.bin_format",
     "rgbd360_tpu_torch.io.calib",
     "rgbd360_tpu_torch.io.clams",
     "rgbd360_tpu_torch.io.dataset",
+    "rgbd360_tpu_torch.io.native",
     "rgbd360_tpu_torch.io.pbmap",
     "rgbd360_tpu_torch.io.pcd",
     "rgbd360_tpu_torch.io.rawlog",
@@ -57,6 +59,10 @@ SLICE_MODULES = [
     "rgbd360_tpu_torch.ops.segmentation",
     "rgbd360_tpu_torch.ops.stitch",
     "rgbd360_tpu_torch.ops.undistort",
+    "rgbd360_tpu_torch.parallel",
+    "rgbd360_tpu_torch.parallel.multihost",
+    "rgbd360_tpu_torch.parallel.sharded",
+    "rgbd360_tpu_torch.parallel.spawn",
     "rgbd360_tpu_torch.registration.dense",
     "rgbd360_tpu_torch.registration.icp",
     "rgbd360_tpu_torch.registration.planes",
@@ -181,22 +187,31 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, alone):
 
 
 def test_mesh_is_not_ported_yet():
-    """The sharded paths wait for `parallel/sharded.py`: `mesh=` raises and
-    names the roadmap item, on the tracker, the loop closer and the
-    relocaliser."""
+    """The sharded paths are ported (`parallel/sharded.py`): `mesh=` no
+    longer raises NotImplementedError on the tracker, the loop closer or
+    the relocaliser, which keep the mesh and shard their scans and solve
+    over it; a mesh whose size does not divide the map's capacities raises
+    ValueError, as the reference's; and no `mesh=` or `--sharded` site of
+    the port raises NotImplementedError."""
     from rgbd360_tpu_torch import synthetic
     from rgbd360_tpu_torch.core.frame import FrameBuilder
+    from rgbd360_tpu_torch.parallel.sharded import Mesh, make_mesh
     from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
     from rgbd360_tpu_torch.slam.odometry import KeyframeSLAM
     from rgbd360_tpu_torch.slam.relocalizer import Relocalizer
 
     cfg = synthetic.config(5, 3)
     builder = FrameBuilder(synthetic.calibration(cfg.rig), cfg, device="cpu")
-    for make in (lambda: KeyframeSLAM(builder, mesh=object()),
-                 lambda: LoopCloser(cfg, mesh=object()),
-                 lambda: Relocalizer(cfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="P8"):
-            make()
+    mesh = make_mesh()
+    slam = KeyframeSLAM(builder, mesh=mesh)
+    assert slam.mesh is mesh and slam.loop_closer.mesh is mesh and slam.relocalizer.mesh is mesh
+    assert LoopCloser(cfg, mesh=mesh).mesh is mesh and Relocalizer(cfg, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="divide"):
+        KeyframeSLAM(builder, mesh=Mesh(None, 0, 3))  # 64 keyframes over 3 ranks
+    for src in (ROOT / "rgbd360_tpu_torch").rglob("*.py"):
+        text = src.read_text()
+        assert "NotImplementedError" not in text or "mesh" not in text.split(
+            "NotImplementedError")[1][:300], src
 
 
 def test_keyframe_slam_lands_on_the_card_by_default():

@@ -128,11 +128,39 @@ def test_golden_solves_resolved_match_reference(paths, builder, golden):
     chip_smoke.check_resolved(got, golden, "re-solved", _gate)
 
 
-def test_register_sequence_sharded_raises(paths):
+def test_register_sequence_sharded_raises(paths, builder, golden, tmp_path):
+    """`--sharded` is ported (`parallel.sharded.distributed_pose_graph`) and
+    no longer raises.  Seeded with the golden's PbMap results, the graph
+    solved edge-sharded in a world of one and on 2 gloo ranks (spawned, each
+    under a timeout) gives the unsharded run's trajectory to 1e-5 m (the
+    same normal equations; on 2 ranks summed in two parts) and its areas;
+    and `main --sharded --device cpu`, a user's single-process call, runs
+    and writes its files (with the test's small builder)."""
+    from _torch_ranks import register_sequence_rank
+    from rgbd360_tpu_torch.parallel.sharded import make_mesh
+    from rgbd360_tpu_torch.parallel.spawn import run_ranks
+
+    seeds = chip_smoke.golden_seeds(golden, "seq_pb_poses", "seq_pb_success")
+    runs = {}
+    for name, mesh in (("unsharded", None), ("world of one", make_mesh())):
+        with chip_smoke.recorded_registration(seeds):
+            runs[name] = register_sequence.run(SequenceDataset(paths["walk"]), builder,
+                                               window=chip_smoke.REG_WINDOW, mesh=mesh)
+    maps = {k: v for k, v in builder.state_dict().items()
+            if k in ("sensor", "u", "v", "scale", "valid") or k.startswith("seam_")}
+    ranks = run_ranks(register_sequence_rank, 2, "gloo", "cpu", timeout=300, threads=1,
+                      args=(str(paths["walk"]), str(paths["calib"]), SUB, LEVELS, maps, seeds,
+                            chip_smoke.REG_WINDOW))
+    ref_traj, ref_labels = runs["unsharded"]
+    for name, (traj, labels) in [*runs.items(), *((f"rank {r}", (o["traj"], o["labels"]))
+                                                  for r, o in enumerate(ranks))]:
+        assert np.abs(traj - ref_traj).max() <= 1e-5, (name, np.abs(traj - ref_traj).max())
+        np.testing.assert_array_equal(labels, ref_labels, err_msg=name)
     argv = [str(paths["walk"]), "--calib", str(paths["calib"]), "--no-intrinsics",
-            "--sharded", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="1.6"):
-        register_sequence.main(argv)
+            "--sharded", "--device", "cpu", "--out", str(tmp_path)]
+    traj, _ = register_sequence.main(argv, builder=builder)
+    assert traj.shape == ref_traj.shape and np.isfinite(traj).all()
+    chip_smoke.check_app_files(tmp_path, chip_smoke.SEQ_OUT_FILES, "register_sequence --sharded")
 
 
 def test_registration_apps_need_a_device_or_the_card(paths):

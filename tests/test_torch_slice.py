@@ -93,9 +93,12 @@ def test_smoke_batch_matches_golden_script():
 def test_entry_forward_twin():
     """`entry()`'s fwd (pyramids of both frames with uniform seam masks,
     then the 3-level PHOTO_DEPTH alignment) on `_synthetic_pair` at 64x384
-    in both packages: pose to 1e-4, Hessian to 1e-3 of its norm, error to
-    1e-3 relative (the per-sweep differences of test_torch_dense, through
-    the whole coarse-to-fine solve)."""
+    in both packages (the port's is `rgbd360_tpu_torch.entry.entry`): pose
+    to 1e-4, Hessian to 1e-3 of its norm, error to 1e-3 relative (the
+    per-sweep differences of test_torch_dense, through the whole
+    coarse-to-fine solve)."""
+    from rgbd360_tpu_torch.entry import entry
+
     cfg = DenseRegConfig(pyramid_levels=3)
     g1, d1, g2, d2 = _synthetic_pair(64, 384)
 
@@ -107,11 +110,10 @@ def test_entry_forward_twin():
 
     pj, hj, ej, ij = jax.device_get(jax.jit(fwd)(g1, d1, g2, d2, jnp.eye(4)))
 
-    t = [torch.tensor(np.asarray(a)) for a in (g1, d1, g2, d2)]
-    tcfg = convert.config_from_reference(cfg)
-    p1 = TD.build_frame_pyramid(t[0], t[1], tcfg)
-    p2 = TD.build_frame_pyramid(t[2], t[3], tcfg)
-    res = TD.DenseAligner(tcfg).align(p1, p2, torch.eye(4), TD.PHOTO_DEPTH)
+    fn, args = entry(64, 384, device="cpu")
+    for a, b in zip(args[:4], (g1, d1, g2, d2)):  # the port's copy of the inputs
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    res = fn(*args)
     np.testing.assert_allclose(res.pose.numpy(), pj, atol=1e-4)
     assert np.abs(res.hessian.numpy() - hj).max() <= 1e-3 * np.abs(hj).max()
     np.testing.assert_allclose(float(res.error), float(ej), rtol=1e-3)

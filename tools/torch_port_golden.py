@@ -101,9 +101,14 @@ only the files in `rgbd360_tpu_torch/data/`:
   (`label_stats`); the RANSAC core on the reference's own index triples
   and the public `ransac_plane` (`ransac_*`).  ~4 min on the CPU.
 
+* `entry_golden.npz` (`--entry-only`), the reference's `__graft_entry__.entry()`
+  forward step at its own size (320x1920, `DenseRegConfig(pyramid_levels=3)`):
+  the pose, Hessian and error it returns and the GN iterations per level;
+  `rgbd360_tpu_torch.entry.entry()` is held to it (phase n).  ~20 s.
+
     JAX_PLATFORMS=cpu python tools/torch_port_golden.py \
         [--batch-only | --odometry-only | --keyframe-only | --apps-only |
-         --registration-only | --extras-only]
+         --registration-only | --extras-only | --entry-only]
 """
 
 from __future__ import annotations
@@ -1127,6 +1132,24 @@ def extras_jax(paths: dict, subsample: int = 1, pyramid_levels: int = 5,
     return out
 
 
+def entry_jax(height: int = 320, width: int = 1920) -> dict:
+    """`__graft_entry__.entry()`'s forward step on `_synthetic_pair(height,
+    width)` from the identity: pose, Hessian, error, iterations per level."""
+    from __graft_entry__ import _synthetic_pair
+    from rgbd360_tpu.config import DenseRegConfig
+
+    cfg = DenseRegConfig(pyramid_levels=3)
+
+    def fwd(g1, d1, g2, d2, init):
+        p1 = D.build_frame_pyramid(g1, d1, cfg)
+        p2 = D.build_frame_pyramid(g2, d2, cfg)
+        res = D.DenseAligner(cfg)._align_impl(p1, p2, init, D.PHOTO_DEPTH)
+        return res.pose, res.hessian, res.error, res.iters
+
+    out = jax.device_get(jax.jit(fwd)(*_synthetic_pair(height, width), jnp.eye(4)))
+    return {k: np.asarray(v) for k, v in zip(("pose", "hessian", "error", "iters"), out)}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=6, help="frames of the slice")
@@ -1144,8 +1167,16 @@ def main(argv=None) -> None:
                       help="write only registration_golden.npz")
     only.add_argument("--extras-only", action="store_true",
                       help="write only extras_golden.npz")
+    only.add_argument("--entry-only", action="store_true",
+                      help="write only entry_golden.npz")
     args = p.parse_args(argv)
     out_dir = pathlib.Path(args.out_dir)
+    if args.entry_only:
+        res = entry_jax()
+        np.savez(out_dir / "entry_golden.npz", **res)
+        print(f"wrote {out_dir / 'entry_golden.npz'}: pose t {res['pose'][:3, 3].tolist()}, "
+              f"error {float(res['error'])}, iterations {res['iters'].tolist()}")
+        return
     if args.extras_only:
         import tempfile
 

@@ -1,0 +1,9 @@
+"""build.host_ms: host ms per traced frame in the frame build's
+stitch and cloud stages (the program's `stitch` and `cloud` ranges)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.has(["stitch", "cloud"]):
+        return None
+    return 1e3 * t.host_s(["stitch", "cloud"]) / t.frames

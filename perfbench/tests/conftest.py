@@ -1,0 +1,9 @@
+"""The benchmark's tests import `perfbench` and the port from the root of
+the checkout; JAX stays out of these processes."""
+
+import sys
+from pathlib import Path
+
+ROOT = str(Path(__file__).resolve().parents[2])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)

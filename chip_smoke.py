@@ -1186,7 +1186,10 @@ def _count_syncs(fn) -> int:
 
 
 REGIONS = {"build", "stitch", "cloud", "pyramid", "segment", "register", "align",
-           "fused_track", "register_pbmap", "register_dense", "loop_closure", "optimize"}
+           "fused_track", "register_pbmap", "register_dense", "loop_closure", "optimize",
+           "frame", "track.fetch", "kf_pyramid", "partition", "relocalize", "relocalize.scan",
+           "relocalize.verify", "event.A", "event.B", "event.C", "event.rescue", "event.D",
+           "event.fetch", "event.drain"}
 
 
 # CUDA runtime calls that block the host; `cudaDeviceSynchronize` is left
@@ -1251,11 +1254,13 @@ def check_odometry_phase(smi: str) -> None:
     print(f"odometry: process median {process_ms:.3f} ms per tracked frame "
           f"(all {np.round(run['process_ms'], 3).tolist()}); build_full median "
           f"{build_ms:.3f} ms per frame over 7, on {smi}")
-    timer = StageTimer(sync=True)
+    timer = StageTimer()
+    timer.enable()
     track_odometry(builder, raws, timer)
-    print(f"odometry stages (StageTimer(sync=True), {N_FRAMES} frames):\n{timer.report()}")
-    print(f"odometry: PbMap register {1e3 * timer.times['register'] / timer.counts['register']:.3f} "
-          f"ms per tracked frame (StageTimer)")
+    print(f"odometry spans ({N_FRAMES} frames):\n{timer.report()}")
+    reg = [sp.ms for sp in timer.spans if sp.name == "register"]
+    print(f"odometry: PbMap register {sum(reg) / len(reg):.3f} ms per tracked frame "
+          f"(host span, its fetch included)")
 
     tracker = FrameToFrameOdometry(builder)
     tracker.process(raws[0])
@@ -1673,16 +1678,11 @@ def run_checkpoint(builder, cfg, raws, cut: int, path) -> dict:
     b.resume_from_checkpoint(str(path))
     if b.current_kf != a.current_kf or b._n_kf_host != a._n_kf_host:
         raise AssertionError("the resumed tracker is not where the saved one was")
-    kf_pyramid, rebuilds = b.loop_closer.kf_pyramid, []
-
-    def counted(map360, k, cache=None):
-        if cache is None or k not in cache:
-            rebuilds.append(k)
-        return kf_pyramid(map360, k, cache)
-
-    b.loop_closer.kf_pyramid = counted
+    b.timer.enable()
     out = run_keyframe(b, raws[cut:])
-    out["rebuilds"] = np.asarray(rebuilds, np.int64)
+    out["rebuilds"] = np.asarray(
+        [sp.attrs["kf"] for sp in b.timer.take_spans() if sp.name == "kf_pyramid"], np.int64
+    )
     return out
 
 

@@ -134,6 +134,8 @@ def run(ds, builder, pbmap: bool = False, plane_ba_: bool = False, gt=None,
     from rgbd360_tpu_torch.slam.pbmap_slam import PbMapGraphSLAM
 
     slam = PbMapGraphSLAM(builder) if pbmap else KeyframeSLAM(builder)
+    if timing:
+        slam.timer.enable()
     for i, raw in enumerate(ds):
         ev = slam.process(raw)
         pose = slam.trajectory[-1]
@@ -187,7 +189,10 @@ def main(argv=None):
     p.add_argument("--pbmap", action="store_true",
                    help="PbMap-tracking graph SLAM (reference SphereGraphSLAM)")
     p.add_argument("--timing", action="store_true",
-                   help="print per-stage wall times (the reference's stage timers)")
+                   help="record the tracker's spans and print host ms by span name, "
+                   "total and self time (less the spans inside), and the counters; "
+                   "host times: the card runs asynchronously, so a span holds its "
+                   "launches and the waits made inside it")
     p.add_argument("--plane-ba", action="store_true",
                    help="final joint refinement of keyframe poses + global "
                    "plane landmarks (Schur-complement planar BA)")

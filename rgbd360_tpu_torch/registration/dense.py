@@ -79,6 +79,9 @@ class AlignResult:
     sso: torch.Tensor  # co-visibility ratio
     iters: torch.Tensor  # (levels,) iterations used per level
     ill_posed: torch.Tensor  # bool
+    # host count of GN loop trips over the levels and the polish: each is
+    # one sweep of the pixels and one host sync (a batch's, for each item)
+    sweeps: int = 0
 
 
 def pyramid_tail(pyr: FramePyramid, start: int) -> FramePyramid:
@@ -553,6 +556,11 @@ def _gn_level(
     )
 
 
+# GN loop trips since import, a host count: a solve's `sweeps` is what it
+# adds (the host runs one solve at a time)
+_GN_TRIPS = [0]
+
+
 def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
     """The GN loop of `_gn_level` over any sweep: `sweep(pose)` gives
     (hessian, gradient, stats) and `st_best` holds the statistics kept
@@ -562,7 +570,8 @@ def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
     one host sync (`it` starts at -1: the first sweep only evaluates).  For
     a batch of poses the loop runs while any element is active; a finished
     element keeps its state, so each element ends where its own unbatched
-    run would."""
+    run would.  Each trip counts in `_GN_TRIPS` (no device work, no sync
+    of its own)."""
     dev = pose.device
     batch = pose.shape[:-2]
     cand, best = pose, pose
@@ -578,6 +587,7 @@ def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
 
     run = active()
     while bool(run.any()):
+        _GN_TRIPS[0] += 1
         hess, grad, stats = sweep(cand)
         err = stats["mean_err"]
         bad, update = _solve_step(hess, grad)
@@ -764,6 +774,7 @@ class DenseAligner:
         pose = init_pose.expand(n, 4, 4)
         ill = torch.zeros(n, dtype=torch.bool, device=pose.device)
         iters = []
+        trips0 = _GN_TRIPS[0]
 
         for lvl in reversed(range(cfg.pyramid_levels)):
             intr = self._intr(lvl, pose.device)
@@ -817,12 +828,15 @@ class DenseAligner:
             sso=stats["visible"] / size,
             iters=torch.stack(iters[::-1], dim=-1),
             ill_posed=ill,
+            sweeps=_GN_TRIPS[0] - trips0,
         )
         return res if batched else _result_item(res, 0)
 
 
 def _result_item(res: AlignResult, i: int) -> AlignResult:
-    return AlignResult(**{k: v[i] for k, v in vars(res).items()})
+    """Item i of a batched result (the host `sweeps` is the batch's)."""
+    return AlignResult(**{k: v[i] if isinstance(v, torch.Tensor) else v
+                          for k, v in vars(res).items()})
 
 
 def batch_align_targets_dispatch(aligner, src_pyr, trg_pyrs, seeds) -> AlignResult:
@@ -845,7 +859,8 @@ def batch_align_targets(aligner, src_pyr, trg_pyrs, seeds) -> AlignResult:
     """`batch_align_targets_dispatch`, fetched: the result's tensors on the
     host."""
     res = batch_align_targets_dispatch(aligner, src_pyr, trg_pyrs, seeds)
-    return AlignResult(**{k: v.cpu() for k, v in vars(res).items()})
+    return AlignResult(**{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in vars(res).items()})
 
 
 def entropy_from_hessian(hess: torch.Tensor) -> torch.Tensor:

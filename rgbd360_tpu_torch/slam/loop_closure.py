@@ -17,6 +17,7 @@ until its solve has converged.)
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -164,13 +165,19 @@ class LoopCloser:
             )
         return match_against_keyframes(map_planes, query, gate, self.config.matcher)
 
-    def kf_pyramid(self, map360, k: int, cache: dict | None = None):
+    def kf_pyramid(self, map360, k: int, cache: dict | None = None, timer=None):
         """Alignment pyramid of keyframe k, rebuilt from the map's bfloat16
         payload (no seam masks); memoized in `cache` (keyframe payloads do
-        not change once added)."""
-        if cache is not None and k in cache:
+        not change once added).  With a `timer` (`utils.trace.StageTimer`),
+        a lookup counts as `kf_pyramid.hit` or `kf_pyramid.miss` and a
+        rebuild is a `kf_pyramid` span."""
+        hit = cache is not None and k in cache
+        if timer is not None:
+            timer.counts["kf_pyramid.hit" if hit else "kf_pyramid.miss"] += 1
+        if hit:
             return cache[k]
-        pyr = self._pyr(map360.gray[k].to(torch.float32), map360.depth[k].to(torch.float32))
+        with contextlib.nullcontext() if timer is None else timer.region("kf_pyramid", kf=int(k)):
+            pyr = self._pyr(map360.gray[k].to(torch.float32), map360.depth[k].to(torch.float32))
         if cache is not None:
             cache[k] = pyr
         return pyr
@@ -223,12 +230,12 @@ class LoopCloser:
         cand_pose = {int(i): p for i, v, p in zip(top_idx, top_ok, top_pose) if v}
         return cand, cand_pose
 
-    def verify_dispatch(self, map360, q_pyr, cand, cand_pose, pyr_cache=None):
+    def verify_dispatch(self, map360, q_pyr, cand, cand_pose, pyr_cache=None, timer=None):
         """The batched dense verification of all candidates; returns (the
         result batch on the device, candidate pyramids).  Seeds: the plane
         pose maps x_kf = T x_query and align(query, kf) optimizes exactly
-        that T_kf<-query."""
-        cand_pyrs = [self.kf_pyramid(map360, int(k), pyr_cache) for k in cand]
+        that T_kf<-query.  `timer`: see `kf_pyramid`."""
+        cand_pyrs = [self.kf_pyramid(map360, int(k), pyr_cache, timer) for k in cand]
         res_b = D.batch_align_targets_dispatch(
             self._aligner, q_pyr, cand_pyrs, [cand_pose[int(k)] for k in cand]
         )

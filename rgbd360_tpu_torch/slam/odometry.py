@@ -28,8 +28,10 @@ result comes to the host in ONE copy (`fetch`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +72,44 @@ def is_motion_continuous(
     return dt < max_translation and dr < max_rotation
 
 
+def traced_frame(process):
+    """Run a tracker's `process` inside a `frame` span of its timer, with
+    the frame's outcome on the span (`keyframe`, `lost`, `relocalized`)
+    and, tallied by what runs inside it, the event phases it advanced
+    (`phases`), the drains it waited for (`stalled`) and its tracking
+    solves' GN loop trips (`sweeps` over `solves`)."""
+
+    @functools.wraps(process)
+    def call(self, raw):
+        timer = self.timer
+        timer.frame = len(self.trajectory)
+        with timer.region("frame", phases=0, stalled=0, sweeps=0, solves=0):
+            ev = process(self, raw)
+            timer.annotate(
+                keyframe=bool(ev.get("keyframe")),
+                lost=bool(ev.get("lost")) or ev.get("tracked") is False,
+                relocalized=bool(ev.get("relocalized")),
+            )
+        return ev
+
+    return call
+
+
+class _Event(NamedTuple):
+    """A pending keyframe event: its generator, the tensors its next phase
+    awaits (None before the first), its dispatch counter, the readiness
+    marker of its last phase, the phase it runs next, the frame index it
+    was enqueued at and its keyframe."""
+
+    gen: object
+    struct: object
+    counter: list
+    marker: object
+    phase: str = "A"
+    enqueued: int = -1
+    kf: int = -1
+
+
 @dataclass
 class FrameState:
     """Per-frame working set kept for the tracked reference frame."""
@@ -86,10 +126,12 @@ class TrackerBase:
 
     The engine (the reference's background loop-closure thread,
     `include/LoopClosure360.h:93`, as a queue on the host): `_pending` is a
-    FIFO of (generator, awaited tensors, dispatch counter, readiness
-    marker), advanced HEAD-ONLY between frames.  Each phase of an event's
-    generator enqueues device work and yields the tensors it needs fetched;
-    the poller fetches them (one copy) and sends the host values back in.
+    FIFO of `_Event`s (generator, awaited tensors, dispatch counter,
+    readiness marker, then the phase it runs next, the frame it was
+    enqueued at and its keyframe), advanced HEAD-ONLY between frames.
+    Each phase of an event's generator enqueues device work and yields the
+    tensors it needs fetched; the poller fetches them (one copy) and sends
+    the host values back in.
     Head-only advancement serializes events (no two events' phases
     interleave, and every event's first phase observes its predecessors'
     applied effects) while a new keyframe ENQUEUES its event instead of
@@ -102,7 +144,12 @@ class TrackerBase:
     collectives (the sharded scan, the distributed solve) out of step with
     them, a deadlock.  The head event then advances one phase at every
     `kf.det_poll_cadence`-th poll site instead, a schedule that depends on
-    the frame stream alone and so is the same on every rank."""
+    the frame stream alone and so is the same on every rank.
+
+    A generator names the phase it runs next in `_event_phase` before each
+    yield (its first phase is A); each advance is an `event.<phase>` span
+    of the timer (`done` on an event's last), the fetch it starts with an
+    `event.fetch` span, and a drain an `event.drain` span."""
 
     def __init__(self, builder: FrameBuilder, config: FrameworkConfig | None = None):
         self.config = config or builder.config
@@ -119,9 +166,11 @@ class TrackerBase:
         seam = stitch_ops.seam_mask_from_maps(builder.maps, 1)
         seam_levels = D.seam_masks_per_level(seam, self.config.dense.pyramid_levels)
         self._pyr = lambda g, d: D.build_frame_pyramid(g, d, self.config.dense, seam_levels)
-        # the stage taxonomy as named regions: print(tracker.timer.report())
+        # spans and counters: tracker.timer.enable(), then
+        # print(tracker.timer.report()) or tracker.timer.take_spans()
         self.timer = StageTimer()
         self._pending: deque = deque()
+        self._event_phase = "A"
         # per-event count of dispatch sites (map updates, batched scans and
         # solves); _advance_head swaps in the advancing event's counter so
         # every dispatch is attributed to the event that issued it
@@ -150,8 +199,12 @@ class TrackerBase:
         bound keeps worst-case staleness at one event (a looser one let
         partitions and optimized poses lag several keyframes in the
         reference's measurements)."""
-        while len(self._pending) >= 2:
-            self._advance_head()
+        if len(self._pending) < 2:
+            return
+        self.timer.tally(stalled=1)
+        with self.timer.region("event.drain", why="backpressure"):
+            while len(self._pending) >= 2:
+                self._advance_head()
 
     def _mark_phase(self):
         """The readiness marker of the work enqueued so far: an event on
@@ -180,8 +233,8 @@ class TrackerBase:
                 self._advance_head()
             return
         while self._pending:
-            _, struct, _, marker = self._pending[0]
-            if struct is not None and not block and not self._phase_ready(marker):
+            head = self._pending[0]
+            if head[1] is not None and not block and not self._phase_ready(head[3]):
                 return
             self._advance_head()
 
@@ -191,23 +244,44 @@ class TrackerBase:
         each phase yields the tensors it needs FETCHED and receives the
         fetched (host) values as the yield's result, so the poller owns the
         copy to the host."""
-        gen, struct, counter, _ = self._pending[0]
+        head = _Event(*self._pending[0])
         saved = self._cur_counter
-        self._cur_counter = counter
+        self._cur_counter = head.counter
+        timer = self.timer
+        timer.tally(phases=1)
+        self._event_phase = "?"  # a generator that names no phase
         try:
-            try:
-                # first advance: run to the first yield
-                out = next(gen) if struct is None else gen.send(fetch(struct))
-                self._pending[0] = (gen, out, counter, self._mark_phase())
-            except StopIteration:
-                self._pending.popleft()
+            with timer.region(f"event.{head.phase}", event=head.kf, enqueued=head.enqueued):
+                try:
+                    if head.struct is None:  # first advance: run to the first yield
+                        out = next(head.gen)
+                    else:
+                        with timer.region("event.fetch", event=head.kf):
+                            host = fetch(head.struct)
+                        out = head.gen.send(host)
+                    self._pending[0] = head._replace(
+                        struct=out, marker=self._mark_phase(), phase=self._event_phase
+                    )
+                except StopIteration:  # the event's last phase
+                    self._pending.popleft()
+                    timer.annotate(done=True)
         finally:
             self._cur_counter = saved
 
-    def _drain_pending(self) -> None:
+    def _enqueue_event(self, gen, k: int) -> None:
+        """Queue keyframe k's event generator, stamped with the frame it
+        was enqueued at."""
+        self._pending.append(_Event(gen, None, self._cur_counter, None, "A",
+                                    len(self.trajectory), k))
+
+    def _drain_pending(self, why: str = "flush") -> None:
         """Run any deferred keyframe event to completion (map readers and
-        the next keyframe event need the fully-applied map)."""
-        self._poll_pending(block=True)
+        the next keyframe event need the fully-applied map); `why` names
+        the drain on its span."""
+        if self._pending:
+            self.timer.tally(stalled=1)
+        with self.timer.region("event.drain", why=why):
+            self._poll_pending(block=True)
 
     def flush(self) -> None:
         """Public drain: call before reading `map`, `optimized_trajectory`
@@ -224,15 +298,16 @@ class TrackerBase:
         area."""
         n_kf = self._n_kf_host
         n_cov = min(n_kf, sso_f.shape[0])
-        area, n_areas = partition_map(
-            self.map, self.config.map.sso_partition_threshold, sso=sso_f, n_kf=n_cov
-        )
-        if n_cov < n_kf:
-            later = self.map.area[n_cov:n_kf].cpu().numpy()
-            area[n_cov:n_kf] = later
-            n_areas = max(n_areas, int(later.max()) + 1)
-        self.map.area.copy_(torch.from_numpy(area))
-        self.map.n_areas.fill_(n_areas)
+        with self.timer.region("partition", n_kf=n_cov):
+            area, n_areas = partition_map(
+                self.map, self.config.map.sso_partition_threshold, sso=sso_f, n_kf=n_cov
+            )
+            if n_cov < n_kf:
+                later = self.map.area[n_cov:n_kf].cpu().numpy()
+                area[n_cov:n_kf] = later
+                n_areas = max(n_areas, int(later.max()) + 1)
+            self.map.area.copy_(torch.from_numpy(area))
+            self.map.n_areas.fill_(n_areas)
         return [int(a) for a in area[:n_kf]]
 
     def make_state(self, raw) -> FrameState:
@@ -297,6 +372,7 @@ class TrackerBase:
                         method=D.PHOTO_DEPTH,
                     )
                 )
+                self.timer.tally(sweeps=res.sweeps, solves=1)
             pose = res.pose.numpy()
             step = pose if inv_prev is None else inv_prev @ pose
             good = not bool(res.ill_posed) and is_motion_continuous(
@@ -384,6 +460,7 @@ class FrameToFrameOdometry(TrackerBase):
         # constant-velocity motion model: the last accepted step
         self.last_step = np.eye(4)
 
+    @traced_frame
     def process(self, raw) -> dict:
         """Track one raw capture (a `core.frame.RawRigFrame`, or the reference's
         `io.bin_format.RawRigFrame`: anything with `rgb` and `depth_mm`)."""
@@ -773,6 +850,7 @@ class KeyframeSLAM(TrackerBase):
 
     # ------------------------------------------------------------ process
 
+    @traced_frame
     def process(self, raw) -> dict:
         """Process one raw rig capture.  The common healthy-tracking case
         runs the fused tracked frame (front end + PbMap + motion-model
@@ -797,11 +875,18 @@ class KeyframeSLAM(TrackerBase):
         ):
             frame = RigFrame.from_raw(raw, self.device)
             seed = self.track_rel @ self.last_step
-            with self.timer.region("fused_track"):
-                sphere, pyr, planes = self.builder.build_full(frame, self.timer)
-                pb = self.plane_reg.register(self.kf_state.planes, planes, mode=PLANAR_3DOF)
-                res = self.aligner.align(pyr, self.kf_state.pyramid, seed, method=D.PHOTO_DEPTH)
-                pb, res = fetch((pb, res))
+            timer = self.timer
+            with timer.region("fused_track"):
+                sphere, pyr, planes = self.builder.build_full(frame, timer)
+                with timer.region("register"):
+                    pb = self.plane_reg.register(self.kf_state.planes, planes, mode=PLANAR_3DOF)
+                with timer.region("align"):
+                    res = self.aligner.align(
+                        pyr, self.kf_state.pyramid, seed, method=D.PHOTO_DEPTH
+                    )
+                    timer.tally(sweeps=res.sweeps, solves=1)
+                with timer.region("track.fetch"):
+                    pb, res = fetch((pb, res))
             state = FrameState(sphere=sphere, pyramid=pyr, planes=planes)
             return self.process_state(state, _pre=(pb, seed, res))
         return self.process_state(self.make_state(raw))
@@ -812,12 +897,22 @@ class KeyframeSLAM(TrackerBase):
         it (the reference accepts on >=5 matched planes alone, which
         aliases in self-similar spaces).  Gates mirror the loop-closure
         acceptance.  Returns (keyframe, T_kf<-frame) or None."""
-        # relocalization scans the map: apply any deferred event first
-        self._drain_pending()
-        r = self.relocalizer.relocalize(self.map, state.planes)
-        if not r.success:
-            return None
-        kf_pyr = self.loop_closer.kf_pyramid(self.map, r.kf, self._kf_pyr_cache)
+        with self.timer.region("relocalize"):
+            # relocalization scans the map: apply any deferred event first
+            self._drain_pending("relocalize")
+            with self.timer.region("relocalize.scan"):
+                r = self.relocalizer.relocalize(self.map, state.planes)
+            found = None
+            if r.success:
+                with self.timer.region("relocalize.verify"):
+                    found = self._verify_relocalization(state, r)
+            self.timer.annotate(success=found is not None)
+        return found
+
+    def _verify_relocalization(self, state: FrameState, r):
+        """The dense check of a relocaliser hit `r`, with the yaw rescue:
+        (keyframe, T_kf<-frame) or None."""
+        kf_pyr = self.loop_closer.kf_pyramid(self.map, r.kf, self._kf_pyr_cache, self.timer)
         ok = lambda res: self.loop_closer.gates_ok(res, self._ref_photo)  # noqa: E731
         res = fetch(self.aligner.align(state.pyramid, kf_pyr, r.pose, method=D.PHOTO_DEPTH))
         if ok(res):
@@ -873,7 +968,9 @@ class KeyframeSLAM(TrackerBase):
         # reference keyframe pyramids (cached; rebuilt from the map payload
         # only after relocalization to an old keyframe, or a resume)
         if self.kf_state is None:
-            kf_pyr = self.loop_closer.kf_pyramid(self.map, self.current_kf, self._kf_pyr_cache)
+            kf_pyr = self.loop_closer.kf_pyramid(
+                self.map, self.current_kf, self._kf_pyr_cache, self.timer
+            )
             kf_planes = type(self.map.planes)(**{
                 f.name: getattr(self.map.planes, f.name)[self.current_kf]
                 for f in dataclasses.fields(self.map.planes)
@@ -1026,12 +1123,11 @@ class KeyframeSLAM(TrackerBase):
         Synchronous mode drains here and returns True when optimization ran
         (the caller refreshes poses read from the map afterwards); async
         always returns False: optimized poses apply on a later frame."""
-        gen = self._kf_event_gen(state, k, ev)
-        self._pending.append((gen, None, self._cur_counter, None))
+        self._enqueue_event(self._kf_event_gen(state, k, ev), k)
         if self.config.kf.async_kf_events:
             self._poll_pending()
             return False
-        self._drain_pending()
+        self._drain_pending("sync")
         return ev.get("optimized", False)
 
     def _kf_event_gen(self, state: FrameState, k: int, ev: dict):
@@ -1062,6 +1158,7 @@ class KeyframeSLAM(TrackerBase):
         # ---- phase B: host-filter both slates (ONE combined fetch, owned
         # by the poller); the batched dense aligns (connections) and
         # verifications (LC candidates)
+        self._event_phase = "B"
         (top_i, top_ok, top_seeds), scan_f = yield (conn, scan)
         near = [
             (int(kf), seed.numpy())
@@ -1076,7 +1173,7 @@ class KeyframeSLAM(TrackerBase):
             lv = self._conn_level
             pyrs = [
                 D.pyramid_tail(
-                    self.loop_closer.kf_pyramid(self.map, kf, self._kf_pyr_cache), lv
+                    self.loop_closer.kf_pyramid(self.map, kf, self._kf_pyr_cache, self.timer), lv
                 )
                 for kf, _ in cands
             ]
@@ -1095,11 +1192,13 @@ class KeyframeSLAM(TrackerBase):
                     # the tracker's own (seam-masked) pyramid serves as
                     # the query: the front end already built it
                     verify_res, cand_pyrs = self.loop_closer.verify_dispatch(
-                        self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache
+                        self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache,
+                        self.timer,
                     )
                     self._nd()
         # ---- phase C: gate fetched results (ONE combined fetch); rescue
         # failed LC candidates; add the edge slate in ONE update
+        self._event_phase = "C"
         res_f, vf = yield (conn_res, verify_res)
         new_edges: list[tuple] = []
         n_connections = 0
@@ -1134,6 +1233,7 @@ class KeyframeSLAM(TrackerBase):
                 for i, kf in failures
             )
             self._nd(len(failures))
+            self._event_phase = "rescue"
             res_rs_f = yield res_rs
             for (i, kf), res_r in zip(failures, res_rs_f):
                 if self.loop_closer.gates_ok(res_r, self._ref_photo):
@@ -1162,6 +1262,7 @@ class KeyframeSLAM(TrackerBase):
             # partition reads is the one of NOW, so it is cloned here (a
             # keyframe promoted before the next phase writes its edge's
             # entry into the map's)
+            self._event_phase = "D"
             if partition_due:  # ONE combined fetch
                 chi2_f, sso_f = yield (chi2, self.map.sso.clone())
             else:
@@ -1177,6 +1278,7 @@ class KeyframeSLAM(TrackerBase):
             ev["chi2"] = float(chi2_f)
             ev["optimized"] = True
         elif partition_due:
+            self._event_phase = "D"
             sso_f = (yield (self.map.sso.clone(),))[0]
         if partition_due:
             self._area_host = self._apply_partition(sso_f)

@@ -34,7 +34,7 @@ from rgbd360_tpu_torch.registration.planes import PLANAR_ODOMETRY_3DOF
 from rgbd360_tpu_torch.slam.graph import optimize_pose_graph
 from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
 from rgbd360_tpu_torch.slam.map import Map360
-from rgbd360_tpu_torch.slam.odometry import TrackerBase, is_motion_continuous
+from rgbd360_tpu_torch.slam.odometry import TrackerBase, is_motion_continuous, traced_frame
 from rgbd360_tpu_torch.utils.host import fetch
 
 
@@ -83,6 +83,7 @@ class PbMapGraphSLAM(TrackerBase):
         self._kf_pyr_cache[k] = state.pyramid
         return k
 
+    @traced_frame
     def process(self, raw) -> dict:
         return self.process_state(self.make_state(raw))
 
@@ -141,11 +142,11 @@ class PbMapGraphSLAM(TrackerBase):
         ev.update(keyframe=True, tracked=True, ref_kf=ref_kf, matches=int(pb.n_matches))
 
         gen = self._kf_event_gen(state, k, np.asarray(pose), ev, n_edges_snapshot=self._n_edges_host)
-        self._pending.append((gen, None, self._cur_counter, None))
+        self._enqueue_event(gen, k)
         if self.config.kf.async_kf_events:
             self._poll_pending()
         else:
-            self._drain_pending()
+            self._drain_pending("sync")
             if ev.get("optimized"):
                 pose = self._opt_pose(k)
 
@@ -160,8 +161,11 @@ class PbMapGraphSLAM(TrackerBase):
         engine (the reference's LC thread body, `LoopClosure360.h:108-366`,
         and the app's inline optimize).  The snapshot caps pin the scan to
         the map state the event was created against, so the deferred scan
-        matches the synchronous one exactly (see `scan_dispatch`)."""
+        matches the synchronous one exactly (see `scan_dispatch`).  Its
+        phases are named after `KeyframeSLAM`'s (A scan, B verify, C gate,
+        rescue, D optimize and partition)."""
         lc = self.loop_closer
+        timer = self.timer
 
         # ---- phase A: dispatch the LC candidate scan (device-side gate,
         # batched plane match, top-k select)
@@ -169,25 +173,29 @@ class PbMapGraphSLAM(TrackerBase):
         # event-indexed condition (k is fixed at creation; _n_kf_host may
         # have advanced by the time a deferred generator body runs)
         if k + 1 > 3:  # the scan excludes the 2 most recent KFs
-            scan = lc.scan_dispatch(
-                self.map, state.planes, kf_pose, k,
-                n_kf_snapshot=k + 1, n_edges_snapshot=n_edges_snapshot,
-            )
+            with timer.region("loop_closure"):
+                scan = lc.scan_dispatch(
+                    self.map, state.planes, kf_pose, k,
+                    n_kf_snapshot=k + 1, n_edges_snapshot=n_edges_snapshot,
+                )
             self._nd()
         # ---- phase B: host-filter candidates; dispatch batched dense
         # verification (the fetch is owned by the poller)
+        self._event_phase = "B"
         scan_f = (yield (scan,))[0]
         lc_cand: list = []
         lc_pose: dict = {}
         verify_res = cand_pyrs = None
         if scan_f is not None:
-            lc_cand, lc_pose = lc.select_host(scan_f)
-            if lc_cand:
-                verify_res, cand_pyrs = lc.verify_dispatch(
-                    self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache,
-                )
-                self._nd()
+            with timer.region("loop_closure"):
+                lc_cand, lc_pose = lc.select_host(scan_f)
+                if lc_cand:
+                    verify_res, cand_pyrs = lc.verify_dispatch(
+                        self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache, timer,
+                    )
+                    self._nd()
         # ---- phase C: gate, rescue yaw-aliased seeds, add accepted edges
+        self._event_phase = "C"
         vf = (yield (verify_res,))[0]
         lcs = []
         failures = []
@@ -206,6 +214,7 @@ class PbMapGraphSLAM(TrackerBase):
                 for i, kf in failures
             )
             self._nd(len(failures))
+            self._event_phase = "rescue"
             res_rs_f = yield res_rs
             for (i, kf), res_r in zip(failures, res_rs_f):
                 if lc.gates_ok(res_r, None):
@@ -228,12 +237,14 @@ class PbMapGraphSLAM(TrackerBase):
         if lcs:
             g = self.config.graph
             n0 = self._n_kf_host  # keyframes the dispatched solve covers
-            poses, chi2, _ = optimize_pose_graph(
-                self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
-                loop_mask=self.map.edge_is_lc if g.robust_lc else None,
-                dcs_phi=g.dcs_phi,
-            )
+            with timer.region("optimize"):
+                poses, chi2, _ = optimize_pose_graph(
+                    self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
+                    loop_mask=self.map.edge_is_lc if g.robust_lc else None,
+                    dcs_phi=g.dcs_phi,
+                )
             self._nd()
+            self._event_phase = "D"
             if partition_due:  # one combined fetch
                 chi2_f, sso_f = yield (chi2, self.map.sso.clone())
             else:
@@ -248,6 +259,7 @@ class PbMapGraphSLAM(TrackerBase):
             ev["chi2"] = float(chi2_f)
             ev["optimized"] = True
         elif partition_due:
+            self._event_phase = "D"
             sso_f = (yield (self.map.sso.clone(),))[0]
         if partition_due:
             self._apply_partition(sso_f)

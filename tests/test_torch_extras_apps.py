@@ -145,6 +145,7 @@ def test_trace_to_writes_a_chrome_trace(tmp_path):
     from rgbd360_tpu_torch.utils.trace import StageTimer, trace_to
 
     timer = StageTimer()
+    timer.enable()
     with trace_to(tmp_path / "tr"):
         with timer.region("stitch"):
             torch.ones(64).cumsum(0)

@@ -132,32 +132,55 @@ def test_make_state_from_sphere_matches_reference():
 
 
 def test_fetch_is_one_host_copy_of_a_result():
-    """Every field comes back with its dtype, shape and value, from one
-    float64 buffer (exact for f32, int32/int64 and bool)."""
+    """Every tensor field comes back with its dtype, shape and value, from
+    one float64 buffer (exact for f32, int32/int64 and bool); a host field
+    (the GN loop's `sweeps`) comes back as it was."""
     res = TD.AlignResult(
         pose=torch.randn(4, 4), hessian=torch.randn(6, 6), error=torch.tensor(0.25),
         av_photo_residual=torch.tensor(1.5), av_depth_residual=torch.tensor(2.5),
         sso=torch.tensor(0.75), iters=torch.tensor([3, 0, 10]), ill_posed=torch.tensor(True),
+        sweeps=17,
     )
     out = TO.fetch((res, [torch.arange(5, dtype=torch.int32)], "tag"))
     got, (ints,), tag = out
-    assert tag == "tag" and isinstance(got, TD.AlignResult)
+    assert tag == "tag" and isinstance(got, TD.AlignResult) and got.sweeps == 17
     for f in dataclasses.fields(res):
         a, b = getattr(got, f.name), getattr(res, f.name)
+        if f.name == "sweeps":
+            continue
         assert a.dtype == b.dtype and a.device.type == "cpu" and torch.equal(a, b), f.name
     assert ints.dtype == torch.int32 and ints.tolist() == [0, 1, 2, 3, 4]
 
 
 def test_stage_timer_regions():
-    timer = StageTimer(sync=True)  # CPU tensors: nothing to synchronize
-    for _ in range(2):
+    """Off, a region only counts; enabled, each region is a span with its
+    parent, the frame index and its attributes (`annotate` sets them on the
+    innermost open span, `tally` adds to every open span), `report` gives
+    host ms by name with self time, `take_spans` hands the spans over and
+    `reset` clears counts and spans."""
+    timer = StageTimer()
+    with timer.region("segment"):
+        pass
+    assert timer.counts == {"segment": 1} and not timer.spans
+    timer.enable()
+    timer.frame = 3
+    with timer.region("build", n=1):
         with timer.region("segment"):
-            pass
+            timer.tally(sweeps=2)
+        timer.annotate(done=True)
+    timer.counts["kf_pyramid.hit"] += 1
+    assert timer.counts == {"segment": 2, "build": 1, "kf_pyramid.hit": 1}
+    build, seg = timer.spans
+    assert (build.name, build.parent, seg.name, seg.parent) == ("build", -1, "segment", 0)
+    assert build.frame == seg.frame == 3
+    assert build.attrs == {"n": 1, "sweeps": 2, "done": True} and seg.attrs == {"sweeps": 2}
+    assert build.start_ns <= seg.start_ns <= seg.end_ns <= build.end_ns
+    report = timer.report()
+    assert "self ms" in report and "segment" in report and "kf_pyramid.hit 1" in report
+    assert timer.take_spans() == [build, seg] and not timer.spans
+    timer.disable()
     with timer.region("build"):
         pass
-    assert timer.counts == {"segment": 2, "build": 1}
-    assert "segment" in timer.report() and timer.times["build"] >= 0.0
-    timer.add("register", 0.5)
-    assert timer.times["register"] == 0.5
+    assert not timer.spans and timer.counts["build"] == 2
     timer.reset()
-    assert not timer.times and not timer.counts
+    assert not timer.counts and not timer.spans

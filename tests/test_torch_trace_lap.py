@@ -1,0 +1,87 @@
+"""The readers of `tools/torch_trace_lap.py` on hand-built spans: two
+frames, an event whose phases spread over both and one finished by the
+closing flush, host waits placed by time."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+from rgbd360_tpu_torch.utils.trace import Span
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_trace_lap as lap  # noqa: E402
+
+MS = 1_000_000
+
+
+def _spans():
+    rows = [  # name, start ms, end ms, parent, frame, attrs
+        ("frame", 0, 100, -1, 0, dict(sweeps=20, solves=1)),
+        ("fused_track", 0, 60, 0, 0, {}),
+        ("register", 10, 20, 1, 0, {}),
+        ("align", 20, 50, 1, 0, dict(sweeps=20, solves=1)),
+        ("track.fetch", 50, 55, 1, 0, {}),
+        ("event.A", 60, 80, 0, 0, dict(event=1, enqueued=0)),
+        ("event.drain", 80, 95, 0, 0, dict(why="backpressure")),
+        ("event.B", 80, 95, 6, 0, dict(event=1, enqueued=0)),
+        ("event.fetch", 80, 82, 7, 0, dict(event=1)),
+        ("frame", 100, 200, -1, 1, dict(sweeps=30, solves=2)),
+        ("align", 100, 130, 9, 1, dict(sweeps=10, solves=1)),
+        ("register_dense", 130, 160, 9, 1, dict(sweeps=20, solves=1)),
+        ("event.C", 160, 190, 9, 1, dict(event=1, enqueued=0, done=True)),
+        ("event.fetch", 160, 165, 12, 1, dict(event=1)),
+        ("event.drain", 200, 250, -1, 1, dict(why="flush")),
+        ("event.A", 200, 250, 14, 1, dict(event=2, enqueued=1, done=True)),
+    ]
+    return [Span(n, a * MS, b * MS, p, f, at) for n, a, b, p, f, at in rows]
+
+
+WAITS = [w * MS for w in (5, 15, 25, 52, 70, 120, 140, 220)]
+
+
+def test_frame_own_ms():
+    # 100 - 35 ms of phases and drains, 100 - 30 ms of phase C
+    assert lap.frame_own_ms(_spans()) == pytest.approx(67.5)
+
+
+def test_track_gn_sweeps():
+    assert lap.track_gn_sweeps(_spans()) == pytest.approx(50 / 3)
+
+
+def test_track_host_waits():
+    # inside register, align, track.fetch, align, register_dense; not the
+    # build's time in fused_track, an event phase or the flush
+    assert lap.track_host_waits(_spans(), WAITS) == pytest.approx(5 / 2)
+
+
+def test_backend_fetch_ms():
+    assert lap.backend_fetch_ms(_spans()) == pytest.approx(7 / 2)
+
+
+def test_backend_stall_ms():
+    # the backpressure drain in frame 0; the flush stands outside the frames
+    assert lap.backend_stall_ms(_spans()) == pytest.approx(15 / 2)
+
+
+def test_backend_lag_frames():
+    assert lap.backend_lag_frames(_spans()) == pytest.approx(0.5)
+    undone = [s for s in _spans() if not s.attrs.get("done")]
+    assert lap.backend_lag_frames(undone) is None
+
+
+def test_readers_read_none_without_spans():
+    """A program that records no spans (a tracer off, or none at all)."""
+    assert lap.read_all([], WAITS) == dict.fromkeys(lap.READERS)
+
+
+def test_clock_gaps_against_the_profilers_ranges():
+    spans = _spans()
+    ranges = {}
+    for i, s in enumerate(spans):
+        late = 2_000_000 if i == 3 else 50_000
+        ranges.setdefault(s.name, []).append((s.start_ns - late, s.end_ns + 20_000))
+    got = lap.clock_gaps(spans, ranges)
+    assert got["start_max_us"] == pytest.approx(2000.0) and got["end_max_us"] == pytest.approx(20.0)
+    assert got["starts_over_1ms"] == 1 and got["spans"] == len(spans)
+    assert lap.clock_gaps(spans, {}) is None

@@ -17,7 +17,9 @@ minimizing Huber-weighted photometric and depth residuals:
 
 Each GN step evaluates the loop condition on the device and reads it with
 one host sync, which gives exactly the reference's `lax.while_loop`
-semantics (early exit, accept/reject, the iteration counter).
+semantics (early exit, accept/reject, the iteration counter).  On a CUDA
+card each step replays a CUDA graph of its sweep and update (see "CUDA
+graphs" below).
 
 Batches.  The reference vmaps the aligner (the batch pipeline, one source
 against several keyframes, a batch of pose hypotheses, the rig's sensors);
@@ -82,6 +84,8 @@ class AlignResult:
     # host count of GN loop trips over the levels and the polish: each is
     # one sweep of the pixels and one host sync (a batch's, for each item)
     sweeps: int = 0
+    # of those trips, the ones replayed from a CUDA graph
+    replays: int = 0
 
 
 def pyramid_tail(pyr: FramePyramid, start: int) -> FramePyramid:
@@ -545,65 +549,213 @@ def _gn_level(
     """One pyramid level of Gauss-Newton with accept-if-improved stepping
     (a rejected step exits the level).  Returns (pose, err, iters, ill,
     hessian, stats), where hessian/stats come from the last ACCEPTED
-    evaluation: at exit they describe the final pose."""
-    def sweep(cand):
-        return _hess_grad_packed(
-            src_gray, pts, valid_src, trg_pack, cand, cfg, method, occlusion, intr
-        )
+    evaluation: at exit they describe the final pose.  On a CUDA card each
+    trip replays a CUDA graph (`_gn_graph_loop`)."""
+    inputs = dict(src_gray=src_gray, pts=pts, valid_src=valid_src, trg_pack=trg_pack)
+    if intr is not None:
+        inputs["intr"] = intr
+    return _gn_graph_loop(inputs, pose, ill, cfg, method, occlusion, max_iters)
 
-    return _gn_loop(
-        sweep, pose, ill, cfg, max_iters, _stats0(method, pose.shape[:-2], pose.device)
+
+# Since import: GN loop trips (`sweep`), the trips replayed from a CUDA
+# graph (`replay`), the graphs captured (`capture`) and the `coarse_align`
+# calls replayed (`coarse`).  A solve's `sweeps` and `replays` are what it
+# adds (the host runs one solve at a time); a tracker adds each to its
+# timer's `gn_graph.<name>` count.
+GN_COUNTS = {"sweep": 0, "replay": 0, "capture": 0, "coarse": 0}
+
+
+def _gn_start(pose, ill, st_best, cfg, max_iters) -> dict:
+    """The GN loop's state before its first trip (`it` starts at -1: the
+    first sweep only evaluates)."""
+    dev = pose.device
+    batch = pose.shape[:-2]
+    s = dict(
+        cand=pose, best=pose,
+        err_best=torch.full(batch, math.inf, device=dev),
+        it=torch.full(batch, -1, dtype=torch.int64, device=dev),
+        upd=torch.ones(batch, device=dev),
+        diff=torch.ones(batch, device=dev),
+        ill=ill.expand(batch),
+        h_best=torch.zeros(batch + (6, 6), device=dev),
+        st_best=st_best,
+    )
+    s["run"] = _gn_active(s, cfg, max_iters)
+    return s
+
+
+def _gn_active(s: dict, cfg, max_iters) -> torch.Tensor:
+    return (
+        (s["it"] < max_iters) & (s["upd"] > cfg.tol_update)
+        & (s["diff"] > cfg.tol_residual) & ~s["ill"]
     )
 
 
-# GN loop trips since import, a host count: a solve's `sweeps` is what it
-# adds (the host runs one solve at a time)
-_GN_TRIPS = [0]
+def _gn_trip(s: dict, hess, grad, stats, cfg, max_iters) -> dict:
+    """The state after one trip, from the sweep of `s["cand"]`.  The
+    elements that are not running keep their state; those that run take
+    the step if it lowers the error by `tol_residual`."""
+    err = stats["mean_err"]
+    bad, update = _solve_step(hess, grad)
+    run, cand, err_best = s["run"], s["cand"], s["err_best"]
+    accept = ((err_best - err) > cfg.tol_residual) & ~bad
+    step = run & accept  # the elements that take this step
+    best = _where(step, cand, s["best"])
+    n = dict(
+        best=best,
+        h_best=_where(step, hess, s["h_best"]),
+        st_best={k: _where(step, stats[k], v) for k, v in s["st_best"].items()},
+        cand=_where(step, se3.se3_exp(update) @ cand, _where(run, best, cand)),
+        it=s["it"] + step.to(s["it"].dtype),
+        diff=_where(run, torch.where(bad, 0.0, err_best - err), s["diff"]),
+        err_best=_where(step, err, err_best),
+        upd=_where(run, torch.linalg.norm(update, dim=-1), s["upd"]),
+        ill=s["ill"] | (run & bad),
+    )
+    n["run"] = _gn_active(n, cfg, max_iters)
+    return n
+
+
+def _gn_out(s: dict) -> tuple:
+    return s["best"], s["err_best"], s["it"], s["ill"], s["h_best"], s["st_best"]
 
 
 def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
-    """The GN loop of `_gn_level` over any sweep: `sweep(pose)` gives
-    (hessian, gradient, stats) and `st_best` holds the statistics kept
-    (their starting values).
+    """The GN loop of `_gn_level`, run eagerly over any sweep:
+    `sweep(pose)` gives (hessian, gradient, stats) and `st_best` holds the
+    statistics kept (their starting values).  The rig aligner's joint
+    sweep runs here.
 
     The state lives on the device; each step reads the loop condition with
-    one host sync (`it` starts at -1: the first sweep only evaluates).  For
-    a batch of poses the loop runs while any element is active; a finished
-    element keeps its state, so each element ends where its own unbatched
-    run would.  Each trip counts in `_GN_TRIPS` (no device work, no sync
-    of its own)."""
-    dev = pose.device
-    batch = pose.shape[:-2]
-    cand, best = pose, pose
-    err_best = torch.full(batch, math.inf, device=dev)
-    it = torch.full(batch, -1, dtype=torch.int64, device=dev)
-    upd = torch.ones(batch, device=dev)
-    diff = torch.ones(batch, device=dev)
-    ill = ill.expand(batch)
-    h_best = torch.zeros(batch + (6, 6), device=dev)
+    one host sync.  For a batch of poses the loop runs while any element
+    is active; a finished element keeps its state, so each element ends
+    where its own unbatched run would.  Each trip counts in `GN_COUNTS`
+    (no device work, no sync of its own)."""
+    s = _gn_start(pose, ill, st_best, cfg, max_iters)
+    while bool(s["run"].any()):
+        GN_COUNTS["sweep"] += 1
+        s = _gn_trip(s, *sweep(s["cand"]), cfg, max_iters)
+    return _gn_out(s)
 
-    def active():
-        return (it < max_iters) & (upd > cfg.tol_update) & (diff > cfg.tol_residual) & ~ill
 
-    run = active()
-    while bool(run.any()):
-        _GN_TRIPS[0] += 1
-        hess, grad, stats = sweep(cand)
-        err = stats["mean_err"]
-        bad, update = _solve_step(hess, grad)
-        accept = ((err_best - err) > cfg.tol_residual) & ~bad
-        step = run & accept  # the elements that take this step
-        best = _where(step, cand, best)
-        h_best = _where(step, hess, h_best)
-        st_best = {k: _where(step, stats[k], st_best[k]) for k in st_best}
-        cand = _where(step, se3.se3_exp(update) @ cand, _where(run, best, cand))
-        it = it + step.to(it.dtype)
-        diff = _where(run, torch.where(bad, 0.0, err_best - err), diff)
-        err_best = _where(step, err, err_best)
-        upd = _where(run, torch.linalg.norm(update, dim=-1), upd)
-        ill = ill | (run & bad)
-        run = active()
-    return best, err_best, it, ill, h_best, st_best
+# ------------------------------------------------------------ CUDA graphs
+#
+# On a CUDA card the dense sweep's GN trip is a few hundred small kernels
+# whose launches cost the host far more than the card's work.  Each trip
+# (and each `coarse_align` call) is a body over static tensors, captured
+# once per key into a CUDA graph and replayed: one launch a trip, the same
+# kernels in the same order on the same data.  Off the card the same body
+# runs eagerly on the same static tensors.  A key is what the captured
+# code depends on: the inputs' shapes, dtypes and device, the batch, the
+# method, the occlusion mode, whether a pinhole K is given, the loop's
+# bound and the configuration's numbers that the sweep and the loop read
+# (`_SWEEP_FIELDS`).  Inputs are copied into the key's static tensors
+# before each call and results cloned out after it, so no later replay
+# overwrites what a caller holds.  All graphs capture into one memory
+# pool: they replay one at a time on one stream.  A sweep that calls a
+# collective, or any closure (`_gn_loop`), never takes this path.
+
+_SWEEP_FIELDS = (
+    "tol_residual", "tol_update", "bilinear", "sal_intensity", "sal_depth",
+    "std_photo", "std_depth", "bilerp_depth_spread",
+)
+_GRAPHS: dict = {}  # key -> the static tensors and graphs of a GN loop or a coarse sweep
+_CAPTURE: dict = {}  # device -> (memory pool, capture stream)
+
+
+def _replayer(body, device):
+    """How the loops run `body`: the replay of its CUDA graph on a card
+    (captured here), the body itself elsewhere."""
+    if device.type != "cuda":
+        return body
+    return _capture(body, device).replay
+
+
+def _graph_key(kind: str, inputs: dict, cfg, *flags) -> tuple:
+    """The cache key of a graph over `inputs` (name -> tensor)."""
+    return (
+        kind,
+        tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in inputs.items()),
+        tuple(getattr(cfg, f) for f in _SWEEP_FIELDS),
+        flags,
+    )
+
+
+def _static(x):
+    """A static copy of a tensor, or of a dict of them."""
+    if isinstance(x, dict):
+        return {k: _static(v) for k, v in x.items()}
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _load(dst: dict, src: dict) -> None:
+    """Copy `src`'s tensors into the static tensors of `dst`, in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _load(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _capture(body, device) -> "torch.cuda.CUDAGraph":
+    """A CUDA graph of `body()`, which reads and writes static tensors
+    only: run once on the capture stream (which sets up the libraries'
+    handles and workspaces there), then captured into the shared pool."""
+    if device not in _CAPTURE:
+        with torch.cuda.device(device):
+            _CAPTURE[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+    pool, stream = _CAPTURE[device]
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        body()
+    GN_COUNTS["capture"] += 1
+    return graph
+
+
+def _gn_graph_loop(inputs: dict, pose, ill, cfg, method, occlusion, max_iters):
+    """`_gn_loop` over the dense sweep of `inputs` (`src_gray`, `pts`,
+    `valid_src`, `trg_pack`, `intr` where given) on static tensors, with
+    the start and each trip replayed from CUDA graphs on a card: the same
+    trips, syncs and counts."""
+    dev, batch = pose.device, pose.shape[:-2]
+    replayed = int(pose.is_cuda)
+    key = _graph_key(
+        "gn", dict(inputs, pose=pose, ill=ill), cfg, method, occlusion, max_iters
+    )
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        inp = _static(dict(inputs, pose=pose, ill=ill))
+        state = _static(_gn_start(pose, ill, _stats0(method, batch, dev), cfg, max_iters))
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def start():
+            _load(state, _gn_start(
+                inp["pose"], inp["ill"], _stats0(method, batch, dev), cfg, max_iters
+            ))
+            torch.any(state["run"], out=flag)
+
+        def trip():
+            sweep = _hess_grad_packed(
+                inp["src_gray"], inp["pts"], inp["valid_src"], inp["trg_pack"],
+                state["cand"], cfg, method, occlusion, inp.get("intr"),
+            )
+            _load(state, _gn_trip(state, *sweep, cfg, max_iters))
+            torch.any(state["run"], out=flag)
+
+        entry = _GRAPHS[key] = (inp, state, flag, _replayer(start, dev), _replayer(trip, dev))
+    else:
+        _load(entry[0], dict(inputs, pose=pose, ill=ill))
+    _, state, flag, start, trip = entry
+    start()
+    while bool(flag):
+        GN_COUNTS["sweep"] += 1
+        GN_COUNTS["replay"] += replayed
+        trip()
+    return tuple(_static(x) for x in _gn_out(state))
 
 
 # ------------------------------------------------------------------ aligner
@@ -701,14 +853,12 @@ class DenseAligner:
         pyramid level: `iters` plain GN steps each (no accept test, no host
         sync; an ill-posed step does not move), then (refined poses
         (N, 4, 4), post-alignment errors (N,))."""
-        args, intr = self._coarsest(src, trg)
-        pose = torch.as_tensor(poses, dtype=torch.float32, device=src.gray[0].device)
-        for _ in range(iters):
-            hess, grad, _ = _hess_grad_packed(*args, pose, self.cfg, method, 0, intr)
-            bad, upd = _solve_step(hess, grad)
-            pose = se3.se3_exp(_where(bad, torch.zeros_like(upd), upd)) @ pose
-        _, _, stats = _hess_grad_packed(*args, pose, self.cfg, method, 0, intr)
-        return pose, stats["mean_err"]
+        (g, pts, valid, pack), intr = self._coarsest(src, trg)
+        inputs = dict(src_gray=g, pts=pts, valid_src=valid, trg_pack=pack)
+        if intr is not None:
+            inputs["intr"] = intr
+        pose = torch.as_tensor(poses, dtype=torch.float32, device=g.device)
+        return _coarse_graph(inputs, pose, self.cfg, method, iters)
 
     @staticmethod
     def _level_dicts(pyr: FramePyramid, lvl: int) -> dict:
@@ -774,7 +924,7 @@ class DenseAligner:
         pose = init_pose.expand(n, 4, 4)
         ill = torch.zeros(n, dtype=torch.bool, device=pose.device)
         iters = []
-        trips0 = _GN_TRIPS[0]
+        sweeps0, replays0 = GN_COUNTS["sweep"], GN_COUNTS["replay"]
 
         for lvl in reversed(range(cfg.pyramid_levels)):
             intr = self._intr(lvl, pose.device)
@@ -828,13 +978,51 @@ class DenseAligner:
             sso=stats["visible"] / size,
             iters=torch.stack(iters[::-1], dim=-1),
             ill_posed=ill,
-            sweeps=_GN_TRIPS[0] - trips0,
+            sweeps=GN_COUNTS["sweep"] - sweeps0,
+            replays=GN_COUNTS["replay"] - replays0,
         )
         return res if batched else _result_item(res, 0)
 
 
+def _coarse_refine(inputs: dict, pose, cfg, method, iters):
+    """`coarse_align`'s `iters` plain GN steps of the sweep of `inputs`
+    (as `_gn_graph_loop` names them) and the closing error sweep."""
+    args = (inputs["src_gray"], inputs["pts"], inputs["valid_src"], inputs["trg_pack"])
+    intr = inputs.get("intr")
+    for _ in range(iters):
+        hess, grad, _ = _hess_grad_packed(*args, pose, cfg, method, 0, intr)
+        bad, upd = _solve_step(hess, grad)
+        pose = se3.se3_exp(_where(bad, torch.zeros_like(upd), upd)) @ pose
+    _, _, stats = _hess_grad_packed(*args, pose, cfg, method, 0, intr)
+    return pose, stats["mean_err"]
+
+
+def _coarse_graph(inputs: dict, pose, cfg, method, iters):
+    """`_coarse_refine` on static tensors, replayed from a CUDA graph on a
+    card: it has no host read, so the whole refinement is one replay."""
+    key = _graph_key("coarse", dict(inputs, pose=pose), cfg, method, iters)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        inp = _static(dict(inputs, pose=pose))
+        out = (torch.empty_like(inp["pose"]), torch.empty(pose.shape[:-2], device=pose.device))
+
+        def refine():
+            got = _coarse_refine(inp, inp["pose"], cfg, method, iters)
+            for o, x in zip(out, got):
+                o.copy_(x)
+
+        entry = _GRAPHS[key] = (inp, out, _replayer(refine, pose.device))
+    else:
+        _load(entry[0], dict(inputs, pose=pose))
+    _, out, refine = entry
+    refine()
+    GN_COUNTS["coarse"] += int(pose.is_cuda)
+    return tuple(_static(x) for x in out)
+
+
 def _result_item(res: AlignResult, i: int) -> AlignResult:
-    """Item i of a batched result (the host `sweeps` is the batch's)."""
+    """Item i of a batched result (the host `sweeps` and `replays` are the
+    batch's)."""
     return AlignResult(**{k: v[i] if isinstance(v, torch.Tensor) else v
                           for k, v in vars(res).items()})
 

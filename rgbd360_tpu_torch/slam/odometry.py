@@ -27,6 +27,7 @@ result comes to the host in ONE copy (`fetch`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from collections import deque
@@ -72,18 +73,33 @@ def is_motion_continuous(
     return dt < max_translation and dr < max_rotation
 
 
+@contextlib.contextmanager
+def _gn_graph_counts(timer):
+    """Add the dense GN loops' trips, graph replays and captures made
+    inside (`dense.GN_COUNTS`) to the timer's `gn_graph.<name>` counts."""
+    before = dict(D.GN_COUNTS)
+    try:
+        yield
+    finally:
+        for k, v in D.GN_COUNTS.items():
+            timer.counts[f"gn_graph.{k}"] += v - before[k]
+
+
 def traced_frame(process):
     """Run a tracker's `process` inside a `frame` span of its timer, with
     the frame's outcome on the span (`keyframe`, `lost`, `relocalized`)
     and, tallied by what runs inside it, the event phases it advanced
     (`phases`), the drains it waited for (`stalled`) and its tracking
-    solves' GN loop trips (`sweeps` over `solves`)."""
+    solves' GN loop trips (`sweeps` over `solves`, `replays` of them from
+    a CUDA graph); every dense solve's trips and graphs go to the timer's
+    `gn_graph.*` counts."""
 
     @functools.wraps(process)
     def call(self, raw):
         timer = self.timer
         timer.frame = len(self.trajectory)
-        with timer.region("frame", phases=0, stalled=0, sweeps=0, solves=0):
+        with timer.region("frame", phases=0, stalled=0, sweeps=0, replays=0, solves=0), \
+                _gn_graph_counts(timer):
             ev = process(self, raw)
             timer.annotate(
                 keyframe=bool(ev.get("keyframe")),
@@ -286,7 +302,8 @@ class TrackerBase:
     def flush(self) -> None:
         """Public drain: call before reading `map`, `optimized_trajectory`
         or exporting; applies any still-deferred keyframe-event work."""
-        self._drain_pending()
+        with _gn_graph_counts(self.timer):
+            self._drain_pending()
 
     def _apply_partition(self, sso_f) -> list[int]:
         """The periodic topological partition of a keyframe event, on the
@@ -372,7 +389,7 @@ class TrackerBase:
                         method=D.PHOTO_DEPTH,
                     )
                 )
-                self.timer.tally(sweeps=res.sweeps, solves=1)
+                self.timer.tally(sweeps=res.sweeps, replays=res.replays, solves=1)
             pose = res.pose.numpy()
             step = pose if inv_prev is None else inv_prev @ pose
             good = not bool(res.ill_posed) and is_motion_continuous(
@@ -884,7 +901,7 @@ class KeyframeSLAM(TrackerBase):
                     res = self.aligner.align(
                         pyr, self.kf_state.pyramid, seed, method=D.PHOTO_DEPTH
                     )
-                    timer.tally(sweeps=res.sweeps, solves=1)
+                    timer.tally(sweeps=res.sweeps, replays=res.replays, solves=1)
                 with timer.region("track.fetch"):
                     pb, res = fetch((pb, res))
             state = FrameState(sphere=sphere, pyramid=pyr, planes=planes)

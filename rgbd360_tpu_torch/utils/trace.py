@@ -65,12 +65,14 @@ class _Region:
 
     def __enter__(self):
         t = self.timer
-        self.rf.__enter__()
         sp = self.span
         if t._open:
             sp.parent = t._open[-1][0]
         t._open.append((len(t.spans), sp))
         t.spans.append(sp)
+        # the clock right after the range opens: no allocation between the
+        # two reads that could start a garbage collection
+        self.rf.__enter__()
         sp.start_ns = time.time_ns()
         return None
 

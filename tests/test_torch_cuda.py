@@ -279,3 +279,164 @@ def test_slot_eigh_is_finite_on_degenerate_matrices(cuda):
     assert torch.isfinite(val).all() and torch.isfinite(vec).all()
     assert torch.equal(vec[:, 0], torch.eye(3, device="cuda").expand(8, 3, 3))
     assert torch.equal(val[:, 0], torch.zeros((8, 3), device="cuda"))
+
+
+# ------------------------------------------------- the GN trip's CUDA graphs
+#
+# The dense solves replay each GN trip (and each `coarse_align` call) from a
+# CUDA graph.  Each case runs a solve on the graph path, first on an empty
+# cache (capture) and then again on new data of the same shapes (replay),
+# and holds both to the eager loop on the same inputs bit for bit.
+
+
+def _graph_sphere(seed, h=320, w=1920):
+    """A textured sphere on the card and the same sphere turned by two
+    columns with sensor noise: two (gray, depth) pairs."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    gray = (0.5 + 0.25 * np.sin(xx * 0.035 + ph[0]) + 0.2 * np.cos(yy * 0.045 + ph[1])
+            + 0.1 * np.sin((xx + yy) * 0.02 + ph[2]))
+    depth = 3.0 + 0.8 * np.sin(xx * 0.025 + ph[1]) + 0.5 * np.cos(yy * 0.03 + ph[2])
+    gray2 = np.roll(gray, 2, axis=1) + rng.normal(0, 0.002, (h, w))
+    return [(torch.tensor(g, dtype=torch.float32, device="cuda"),
+             torch.tensor(d, dtype=torch.float32, device="cuda"))
+            for g, d in ((gray, depth), (gray2, np.roll(depth, 2, axis=1)))]
+
+
+def _graph_seeds(seed, n):
+    from rgbd360_tpu_torch.ops import se3
+
+    xi = np.random.default_rng(50 + seed).normal(0, 0.01, (n, 6)).astype(np.float32)
+    return se3.se3_exp(torch.tensor(xi, device="cuda"))
+
+
+def _graph_case(name, seed):
+    """(aligner, solve) of one case over the data of `seed`."""
+    import dataclasses
+
+    from rgbd360_tpu_torch.config import DenseRegConfig
+    from rgbd360_tpu_torch.registration import dense as D
+
+    (g1, d1), (g2, d2) = _graph_sphere(seed)
+    base = DenseRegConfig()
+    if name == "single":
+        al = D.DenseAligner(base)
+        src, trg = D.build_frame_pyramid(g2, d2, base), D.build_frame_pyramid(g1, d1, base)
+        return lambda: al.align(src, trg, _graph_seeds(seed, 1)[0])
+    if name == "verify3":  # the loop closer's verification: salient sweeps, dense polish
+        cfg = dataclasses.replace(base, salient_pixels=16384, polish_iters=2)
+        n, lv = 3, 0
+    else:  # "connect6": the keyframe event's connection batch, one level down
+        lv = 1
+        cfg = dataclasses.replace(base, pyramid_levels=base.pyramid_levels - lv)
+        n = 6
+    al = D.DenseAligner(cfg)
+    src = D.pyramid_tail(D.build_frame_pyramid(g2, d2, base), lv)
+    trgs = [D.pyramid_tail(D.build_frame_pyramid(g1 + 0.01 * i, d1, base), lv) for i in range(n)]
+    seeds = list(_graph_seeds(seed, n))
+    return lambda: D.batch_align_targets_dispatch(al, src, trgs, seeds)
+
+
+def _eager(monkeypatch):
+    """Send the dense solves through the eager closure loop (`_gn_loop`),
+    as the rig aligner runs it."""
+    from rgbd360_tpu_torch.registration import dense as D
+
+    def level(src_gray, pts, valid_src, trg_pack, pose, ill, cfg, method, occlusion, intr,
+              max_iters):
+        def sweep(cand):
+            return D._hess_grad_packed(src_gray, pts, valid_src, trg_pack, cand, cfg, method,
+                                       occlusion, intr)
+
+        return D._gn_loop(sweep, pose, ill, cfg, max_iters,
+                          D._stats0(method, pose.shape[:-2], pose.device))
+
+    monkeypatch.setattr(D, "_gn_level", level)
+
+
+def _result_tensors(res):
+    return {k: v.clone() for k, v in vars(res).items() if isinstance(v, torch.Tensor)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["single", "verify3", "connect6"])
+def test_gn_graph_equals_the_eager_loop(cuda, monkeypatch, name):
+    """Captured on the first solve, replayed on the second (other pyramids
+    and seeds, the same shapes): each equals the eager loop on its own
+    inputs bit for bit (pose, Hessian, errors, iterations, flags,
+    statistics), in as many trips, every one replayed; the first result
+    is untouched by the second solve."""
+    from rgbd360_tpu_torch.registration import dense as D
+
+    D._GRAPHS.clear()
+    solves = [_graph_case(name, seed) for seed in (0, 1)]
+    c0 = D.GN_COUNTS["capture"]
+    first = solves[0]()
+    held = _result_tensors(first)
+    captured = D.GN_COUNTS["capture"] - c0
+    second = solves[1]()
+    torch.cuda.synchronize()
+    assert captured >= 2 and D.GN_COUNTS["capture"] - c0 == captured
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = [solve() for solve in solves]
+    for got, ref in zip((first, second), want):
+        assert got.replays == got.sweeps == ref.sweeps > 0 and ref.replays == 0
+        for k, v in _result_tensors(ref).items():
+            assert torch.equal(getattr(got, k), v), (name, k)
+    for k, v in held.items():
+        assert torch.equal(getattr(first, k), v), k
+    assert not torch.equal(first.pose, second.pose)
+
+
+@pytest.mark.cuda
+def test_coarse_align_graph_equals_the_eager_loop(cuda):
+    """`coarse_align` over the 16-hypothesis yaw grid, one replay a call,
+    against `_coarse_refine` run eagerly on the same inputs, over two data
+    sets of the same shapes."""
+    from rgbd360_tpu_torch.config import DenseRegConfig
+    from rgbd360_tpu_torch.ops import se3
+    from rgbd360_tpu_torch.registration import dense as D
+
+    D._GRAPHS.clear()
+    cfg = DenseRegConfig()
+    al = D.DenseAligner(cfg)
+    cands = torch.as_tensor(se3.yaw_grid(16), dtype=torch.float32, device="cuda")
+    runs = []
+    for seed in (0, 1):
+        (g1, d1), (g2, d2) = _graph_sphere(seed)
+        src, trg = D.build_frame_pyramid(g2, d2, cfg), D.build_frame_pyramid(g1, d1, cfg)
+        c0 = D.GN_COUNTS["coarse"]
+        got = al.coarse_align(src, trg, cands)
+        assert D.GN_COUNTS["coarse"] == c0 + 1
+        runs.append((got, src, trg))
+    held = [x.clone() for x in runs[0][0]]
+    for got, src, trg in runs:
+        (g, pts, valid, pack), _ = al._coarsest(src, trg)
+        want = D._coarse_refine(dict(src_gray=g, pts=pts, valid_src=valid, trg_pack=pack),
+                                cands, cfg, D.PHOTO_DEPTH, 10)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], held))
+
+
+@pytest.mark.cuda
+def test_gn_graph_captures_inside_a_profiler_session(cuda, monkeypatch):
+    """A batch first seen inside a `torch.profiler` session is captured
+    there, and the profile sees its replays' kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbd360_tpu_torch.registration import dense as D
+
+    D._GRAPHS.clear()
+    solve = _graph_case("verify3", 2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = solve()
+        torch.cuda.synchronize()
+    assert got.replays == got.sweeps > 0
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = solve()
+    for k, v in _result_tensors(want).items():
+        assert torch.equal(getattr(got, k), v), k

@@ -134,19 +134,20 @@ def test_make_state_from_sphere_matches_reference():
 def test_fetch_is_one_host_copy_of_a_result():
     """Every tensor field comes back with its dtype, shape and value, from
     one float64 buffer (exact for f32, int32/int64 and bool); a host field
-    (the GN loop's `sweeps`) comes back as it was."""
+    (the GN loop's `sweeps` and `replays`) comes back as it was."""
     res = TD.AlignResult(
         pose=torch.randn(4, 4), hessian=torch.randn(6, 6), error=torch.tensor(0.25),
         av_photo_residual=torch.tensor(1.5), av_depth_residual=torch.tensor(2.5),
         sso=torch.tensor(0.75), iters=torch.tensor([3, 0, 10]), ill_posed=torch.tensor(True),
-        sweeps=17,
+        sweeps=17, replays=16,
     )
     out = TO.fetch((res, [torch.arange(5, dtype=torch.int32)], "tag"))
     got, (ints,), tag = out
-    assert tag == "tag" and isinstance(got, TD.AlignResult) and got.sweeps == 17
+    assert tag == "tag" and isinstance(got, TD.AlignResult)
+    assert (got.sweeps, got.replays) == (17, 16)
     for f in dataclasses.fields(res):
         a, b = getattr(got, f.name), getattr(res, f.name)
-        if f.name == "sweeps":
+        if f.name in ("sweeps", "replays"):
             continue
         assert a.dtype == b.dtype and a.device.type == "cpu" and torch.equal(a, b), f.name
     assert ints.dtype == torch.int32 and ints.tolist() == [0, 1, 2, 3, 4]

@@ -88,25 +88,25 @@ def _host_ranges(prof) -> dict:
 @pytest.fixture(scope="module")
 def traced(builder, raws):
     """A deferred run with the tracer on, inside a profiler session, with
-    the trips of every GN loop counted by a wrapper: (tracker, spans, host
-    ranges by name, [(loop start ns, loop end ns, trips)])."""
+    the trips of every dense GN loop counted by wrappers (of the loop and
+    of its trip's update): (tracker, spans, host ranges by name, [(loop
+    start ns, loop end ns, trips)])."""
     slam = KeyframeSLAM(builder, _cfg())
     _deferred(slam)
-    loops, gn_loop = [], TD._gn_loop
+    loops, gn_loop, gn_trip = [], TD._gn_graph_loop, TD._gn_trip
+    trips = [0]
 
-    def counting(sweep, *a, **kw):
-        trips = [0]
+    def counted(*a, **kw):
+        trips[0] += 1
+        return gn_trip(*a, **kw)
 
-        def counted(cand):
-            trips[0] += 1
-            return sweep(cand)
-
-        t0 = time.time_ns()
-        out = gn_loop(counted, *a, **kw)
-        loops.append((t0, time.time_ns(), trips[0]))
+    def counting(*a, **kw):
+        n0, t0 = trips[0], time.time_ns()
+        out = gn_loop(*a, **kw)
+        loops.append((t0, time.time_ns(), trips[0] - n0))
         return out
 
-    TD._gn_loop = counting
+    TD._gn_graph_loop, TD._gn_trip = counting, counted
     slam.timer.enable()
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -114,7 +114,7 @@ def traced(builder, raws):
                 slam.process(raw)
             slam.flush()
     finally:
-        TD._gn_loop = gn_loop
+        TD._gn_graph_loop, TD._gn_trip = gn_loop, gn_trip
     return slam, slam.timer.take_spans(), _host_ranges(prof), loops
 
 
@@ -224,6 +224,17 @@ def test_align_sweeps_are_the_gn_loop_trips(traced):
         solves = [s for s in spans if s.name in ("align", "register_dense")
                   and _root(spans, s) is f]
         assert f.attrs["sweeps"] == sum(trips(s) for s in solves)
+
+
+def test_gn_graph_counts_are_every_loops_trips(traced):
+    """The timer's `gn_graph.*` counts take every dense loop's trips, in
+    frames and in the closing flush; off the card none is replayed or
+    captured, and no frame tallies a replay."""
+    slam, spans, _, loops = traced
+    counts = slam.timer.counts
+    assert counts["gn_graph.sweep"] == sum(n for _, _, n in loops) > 0
+    assert counts["gn_graph.replay"] == counts["gn_graph.capture"] == 0
+    assert all(s.attrs["replays"] == 0 for s in spans if s.name in ("frame", "align"))
 
 
 def test_spans_sit_on_the_profilers_ranges(traced):

@@ -85,3 +85,23 @@ def test_clock_gaps_against_the_profilers_ranges():
     assert got["start_max_us"] == pytest.approx(2000.0) and got["end_max_us"] == pytest.approx(20.0)
     assert got["starts_over_1ms"] == 1 and got["spans"] == len(spans)
     assert lap.clock_gaps(spans, {}) is None
+
+
+def test_track_replay_share():
+    spans = _spans()
+    spans[0].attrs["replays"] = 20
+    spans[9].attrs["replays"] = 25
+    assert lap.track_replay_share(spans) == pytest.approx(45 / 50)
+    assert lap.track_replay_share([s for s in spans if s.name != "frame"]) is None
+
+
+def test_gn_graph_counts_over_the_lap():
+    """The lap's `gn_graph.*` counts (the timer's less those before it)
+    and the share of trips replayed; other counters are left out."""
+    before = {"gn_graph.sweep": 40, "gn_graph.replay": 10, "gn_graph.capture": 12}
+    counts = {"gn_graph.sweep": 100, "gn_graph.replay": 70, "gn_graph.capture": 12,
+              "gn_graph.coarse": 3, "kf_pyramid.hit": 5, "align": 9}
+    assert lap.gn_graph_counts(counts, before) == {
+        "gn_graph.sweep": 60, "gn_graph.replay": 60, "gn_graph.capture": 0,
+        "gn_graph.coarse": 3, "gn_graph.replay_share": 1.0}
+    assert lap.gn_graph_counts({"kf_pyramid.hit": 1}) == {"gn_graph.replay_share": None}

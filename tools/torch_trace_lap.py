@@ -18,15 +18,23 @@ throwaway tracker).  Then, per seed:
   read the profile, and `clock` gives the gaps between the spans' starts
   and ends and the profiler's ranges of them.
 
-One JSON line per seed on standard output, and all of them in `--out`.
+One JSON line per seed on standard output, then one of the dense solves'
+CUDA graphs (`gn_graphs`: captured in the warm-up lap and after it, the
+cache's keys, and the device bytes the cache held and reserved, read by
+clearing it),
+and all of them in `--out`.
 The readers take the lap's spans (`utils.trace.Span`) and the start times
 (ns, the profiler's host clock) of its host-wait calls; each gives a number
-per traced frame, or None where the program recorded no such span.
+per traced frame, or None where the program recorded no such span.  Beside
+them: the tracker's `kf_pyramid.*` counts over both laps, its `gn_graph.*`
+counts over the traced lap with the replay share of every dense solve's GN
+trips, and the tracking solves' own share (`track.replay_share`).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -154,6 +162,26 @@ def read_all(spans, waits) -> dict:
     return {name: fn(spans, waits) for name, fn in READERS.items()}
 
 
+def track_replay_share(spans):
+    """The tracking solves' GN trips replayed from a CUDA graph over all
+    their trips (the frames' `replays` over `sweeps`); None without
+    trips."""
+    frames = _frames(spans)
+    sweeps = sum(f.attrs.get("sweeps", 0) for f in frames)
+    return sum(f.attrs.get("replays", 0) for f in frames) / sweeps if sweeps else None
+
+
+def gn_graph_counts(counts: dict, before: dict | None = None) -> dict:
+    """The timer's `gn_graph.*` counts less those in `before`, and
+    `gn_graph.replay_share`: every dense solve's GN trips replayed from a
+    CUDA graph over all their trips (None without trips)."""
+    before = before or {}
+    got = {k: v - before.get(k, 0) for k, v in counts.items() if k.startswith("gn_graph.")}
+    sweeps = got.get("gn_graph.sweep", 0)
+    got["gn_graph.replay_share"] = got.get("gn_graph.replay", 0) / sweeps if sweeps else None
+    return got
+
+
 def clock_gaps(spans, ranges: dict) -> dict | None:
     """How far each span's start and end lie from the profiler's range of
     the same name (the n-th span of a name against the n-th range; names
@@ -234,6 +262,7 @@ def traced_lap(bench, cfg, traffic, builder, tracker, traf, seed: int) -> dict:
     for i in range(n):
         slam.process(traf.frame(i))
     torch.cuda.synchronize()
+    before = dict(slam.timer.counts)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function(reduce.WINDOW):
             slam.timer.enable()
@@ -250,9 +279,11 @@ def traced_lap(bench, cfg, traffic, builder, tracker, traf, seed: int) -> dict:
                       trace=tr, config=cfg)
     old = {m["name"]: harness._reader(m["name"])(run) for m in bench["per_layer"]}
     counts = {k: v for k, v in slam.timer.counts.items() if k.startswith("kf_pyramid.")}
-    return {"new": read_all(spans, waits), "per_layer": old,
-            "clock": clock_gaps(spans, tr.raw_ranges), "spans": len(spans),
-            "counts": counts, "idle_gaps": tr.idle_gaps(16)}
+    counts.update(gn_graph_counts(slam.timer.counts, before))
+    return {"new": read_all(spans, waits), "track.replay_share": track_replay_share(spans),
+            "per_layer": old, "clock": clock_gaps(spans, tr.raw_ranges), "spans": len(spans),
+            "counts": counts, "idle_gaps": tr.idle_gaps(16),
+            "memory_peak_bytes": torch.cuda.max_memory_allocated()}
 
 
 def main(argv=None) -> int:
@@ -267,6 +298,7 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, str(ROOT))
     from perfbench import scene
+    from rgbd360_tpu_torch.registration import dense as D
 
     bench, cfg, traffic, builder, tracker = _setup()
     warm = scene.LoopTraffic(traffic, args.seeds[0], "cuda")
@@ -276,6 +308,7 @@ def main(argv=None) -> int:
     slam.flush()
     torch.cuda.synchronize()
     del slam
+    graphs = {"captured_in_warmup": D.GN_COUNTS["capture"]}
     trafs = {seed: scene.LoopTraffic(traffic, seed, "cuda") for seed in args.seeds}
     rows = []
     # every cost run before the first profiler session, which makes later
@@ -289,9 +322,19 @@ def main(argv=None) -> int:
         row.update(traced_lap(bench, cfg, traffic, builder, tracker, trafs[row["seed"]],
                               row["seed"]))
         print(json.dumps(row), flush=True)
+    graphs["captured_after_warmup"] = D.GN_COUNTS["capture"] - graphs["captured_in_warmup"]
+    graphs["keys"] = len(D._GRAPHS)
+    torch.cuda.synchronize()
+    held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    D._GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphs["bytes"] = held - torch.cuda.memory_allocated()
+    graphs["reserved_bytes"] = reserved - torch.cuda.memory_reserved()
+    print(json.dumps({"gn_graphs": graphs}), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(rows, indent=1))
+        Path(args.out).write_text(json.dumps({"seeds": rows, "gn_graphs": graphs}, indent=1))
     return 0
 
 

@@ -5,13 +5,16 @@ once the window has closed.
 `Recorder` wraps, for the window only, the calls whose results are the
 answers: the frame build (`FrameBuilder.build_full`: the sphere and the
 pyramid), the tracker's dense solve (`DenseAligner.align` of its
-`aligner`) and the pose-graph solves of the tracker's module
+`aligner`), its plane registration (`PlaneRegistration.register` of its
+`plane_reg`) and the pose-graph solves of the tracker's module
 (`GRAPH_SOLVERS`).  Which calls of each kind it keeps is drawn from the
 run's seed before the window opens: k of the first n calls, n a count
-that every window of every cell reaches (the traffic's `sample`).  A call
-that is not drawn goes straight to the program.  A drawn one keeps
-references to the program's own output tensors; a drawn graph solve's
-input graph is cloned on the device, since the map is updated in place.
+that every window of every cell reaches (the traffic's `sample`; a kind
+the sample leaves out is drawn as none).  A call that is not drawn goes
+straight to the program.  A drawn one keeps references to the program's
+own output tensors; a drawn graph solve's input graph and a drawn
+registration's two plane sets are cloned on the device, since the map is
+updated in place.
 
 The numbers compared (each the largest over the sample):
 
@@ -35,6 +38,18 @@ The numbers compared (each the largest over the sample):
   The cost and not the positions: where closures alias, a graph's minimum
   is flat along some directions, and along them the solves' positions
   move by rounding.  The reference solves in float64.
+- `plane_match_gap`: the program's match set replayed pick by pick
+  through the reference's greedy (the program's earlier picks as the
+  prefix): at each step, how far the program's pick's vote falls short of
+  the reference's best live vote, as a share of it.  It reads 1 where the
+  pick is not live under the reference's gates, where the program stops
+  while the reference still has a positive vote, or where it picks and the
+  reference has none.  A tie broken the other way reads about 1e-7.
+- `plane_pose_gap_m`, `plane_pose_gap_rad`: the translation and rotation
+  between the pose the registration returned and the reference's pose from
+  the program's own pairs; infinite where their `success` differs.
+- `plane_info_gap`: |I - I_ref|_F / |I_ref|_F of the information matrix
+  from those pairs (0 where both are 0).
 
 The control (`numbers(..., control=True)`) puts the reference in the
 program's place, computed one step below the configuration's float32 with
@@ -42,7 +57,9 @@ TF32 off, and computes the same numbers: with TF32 matrix products where
 the reference's work is long matrix products (the pyramid's blur and box
 sums, J^T J), in bfloat16 where it is other float32 arithmetic (the
 stitch and undistortion, the warp and residuals of the solve, the graph
-solve).
+solve); for the plane registration, the votes, the pose and its
+information in bfloat16 (the decompositions in float32 of bfloat16
+values), its gates in float32.
 """
 
 from __future__ import annotations
@@ -51,6 +68,8 @@ import contextlib
 import dataclasses
 import importlib
 import inspect
+import math
+import zlib
 
 import numpy as np
 import torch
@@ -63,7 +82,12 @@ TOL = 1e-5
 # calls them under
 GRAPH_SOLVERS = {
     "rgbd360_tpu_torch.slam.odometry": ("optimize_pose_graph", "optimize_pose_graph_pcg"),
+    "rgbd360_tpu_torch.slam.pbmap_slam": ("optimize_pose_graph",),
 }
+# the kinds drawn from the seed's first stream, in this order; every other
+# kind is drawn from a stream of its own, so adding a kind leaves these
+# draws as they were
+FIRST_STREAM = ("frames", "graphs", "solves")
 
 
 def _pyr_dict(pyr) -> dict:
@@ -72,13 +96,19 @@ def _pyr_dict(pyr) -> dict:
 
 class Recorder:
     """The sampled answers of one window (see the module doc).  `sample`
-    maps each kind (`frames`, `solves`, `graphs`) to [k, n]."""
+    maps each kind (`frames`, `solves`, `graphs`, `registrations`) to
+    [k, n]."""
+
+    KINDS = ("frames", "solves", "graphs", "registrations")
 
     def __init__(self, seed: int, sample: dict):
-        rng = np.random.default_rng([int(seed), 7])
-        self.drawn = {kind: {int(i) for i in rng.choice(int(n), size=min(int(k), int(n)),
-                                                        replace=False)}
-                      for kind, (k, n) in sorted(sample.items())}
+        first = np.random.default_rng([int(seed), 7])
+        self.drawn = {kind: set() for kind in self.KINDS}
+        for kind, (k, n) in sorted(sample.items()):
+            rng = first if kind in FIRST_STREAM else np.random.default_rng(
+                [int(seed), 7, zlib.crc32(kind.encode())])
+            self.drawn[kind] = {int(i) for i in rng.choice(int(n), size=min(int(k), int(n)),
+                                                           replace=False)}
         self.calls = dict.fromkeys(self.drawn, 0)
         self.items = {kind: {} for kind in self.drawn}
         self.frame = -1
@@ -94,7 +124,8 @@ class Recorder:
         """Wrap the answer-producing calls; with `spans`, also mark the
         tracking calls and the keyframe-event engine as profiler ranges
         (`bench.register`, `bench.align`, `bench.event`).  A target the
-        program no longer has is an error, not a call left unchecked."""
+        program no longer has, or a tracker module with no graph solvers
+        listed, is an error, not a call left unchecked."""
         rec = self
 
         def patch(obj, name, make):
@@ -123,6 +154,26 @@ class Recorder:
                         init = (torch.eye(4, device=dev) if init_pose is None else
                                 torch.as_tensor(init_pose, dtype=torch.float32, device=dev))
                         rec.items["solves"][k] = (src, trg, init.clone(), res)
+                return res
+            return call
+
+        def register(orig):
+            sig = inspect.signature(orig)
+
+            def call(*a, **kw):
+                args = sig.bind(*a, **kw)
+                args.apply_defaults()
+                ref, trg = args.arguments["ref"], args.arguments["trg"]
+                k = None
+                if ref.valid.ndim == 1 and trg.valid.ndim == 1:
+                    k = rec._draw("registrations")
+                if k is not None:
+                    snap = tuple({f: getattr(p, f).clone() for f in R.PLANE_FIELDS}
+                                 for p in (ref, trg))
+                with _span(spans, "bench.register"):
+                    res = orig(*a, **kw)
+                if k is not None:
+                    rec.items["registrations"][k] = (*snap, int(args.arguments["mode"]), res)
                 return res
             return call
 
@@ -159,10 +210,10 @@ class Recorder:
             raise KeyError(f"no graph solvers listed for the tracker module {module}")
         patch(builder, "build_full", build_full)
         patch(slam.aligner, "align", align)
+        patch(slam.plane_reg, "register", register)
         for fn in GRAPH_SOLVERS[module]:
             patch(importlib.import_module(module), fn, solver)
         if spans:
-            patch(slam.plane_reg, "register", spanned("bench.register"))
             patch(slam, "_advance_head", spanned("bench.event"))
 
     def uninstall(self) -> None:
@@ -193,12 +244,43 @@ def _rel(a, b) -> float:
     return float(abs(float(a) - float(b)) / max(abs(float(b)), 1e-12))
 
 
-def numbers(rec: Recorder, rig_args: tuple, raw_of, cfg: dict, control: bool = False) -> dict:
+def match_gap(ref: dict, trg: dict, pairs: list, cfg: dict, mode: int) -> float:
+    """`plane_match_gap` of one registration's match set [(i, j), ...]
+    (module doc)."""
+    cand = R.plane_candidates(ref, trg, cfg, mode)
+    cons = R.plane_consistency(ref, trg, cand, cfg)
+    w = R.plane_vote_weights(ref, trg)
+    live, gap = cand, 0.0
+    for step in range(int(cfg["max_matches"])):
+        votes = R.plane_votes(cons, live, w)
+        best = float(votes.max())
+        if step == len(pairs):
+            return 1.0 if best > 0.0 else gap
+        i, j = pairs[step]
+        if not bool(live[i, j]):
+            return 1.0
+        gap = max(gap, (best - float(votes[i, j])) / best)
+        live = R.plane_live_after(live, cons, i, j)
+    return gap
+
+
+def info_gap(answer: torch.Tensor, ref: torch.Tensor) -> float:
+    """`plane_info_gap` of one information matrix: |I - I_ref|_F / |I_ref|_F,
+    the absolute gap where I_ref is 0."""
+    norm = float(torch.linalg.norm(ref))
+    diff = float(torch.linalg.norm(answer.float() - ref))
+    return diff / norm if norm > 0.0 else diff
+
+
+def numbers(rec: Recorder, rig_args: tuple, raw_of, cfg: dict, matcher: dict,
+            control: bool = False) -> dict:
     """The compared numbers of the recorded answers (module doc); with
     `control`, of the control's answers in their place.  `raw_of(i)`
     is window frame i's capture; `cfg` holds the dense configuration
     (`min_depth`, `max_depth`, `pyramid_levels`, `std_photo`, `std_depth`,
-    `sal_intensity`, `sal_depth`)."""
+    `sal_intensity`, `sal_depth`) and `matcher` the plane matcher's
+    (`min_planes_recognition`, the unary and binary thresholds,
+    `max_matches`)."""
     out = {}
     with R.precision(False):
         rig = R.Rig.build(*rig_args)
@@ -285,6 +367,33 @@ def numbers(rec: Recorder, rig_args: tuple, raw_of, cfg: dict, control: bool = F
         excess.append(max(0.0, c_ans - c_ref) / max(c_in, 1e-30))
     if excess:
         out["graph_cost_excess"] = max(excess)
+
+    mgaps, pgaps_m, pgaps_r, igaps = [], [], [], []
+    for _, (ref, trg, mode, res) in sorted(rec.items["registrations"].items()):
+        if control:
+            ans = R.plane_register(ref, trg, matcher, mode, torch.bfloat16)
+            pairs = ans["pairs"]
+        else:
+            n = int(res.n_matches)
+            pairs = [tuple(p) for p in res.pairs[:n].tolist()]
+            ans = {"pose": res.pose, "information": res.information,
+                   "success": bool(res.success)}
+        with R.precision(False):
+            mgaps.append(match_gap(ref, trg, pairs, matcher, mode))
+            want = R.plane_pose(ref, trg, pairs, matcher)
+        if ans["success"] != want["success"]:
+            pgaps_m.append(math.inf)
+            pgaps_r.append(math.inf)
+        else:
+            gap = R.se3_inv(want["pose"].double()) @ ans["pose"].double()
+            pgaps_m.append(float(torch.linalg.norm(gap[:3, 3])))
+            pgaps_r.append(float(torch.linalg.norm(R.so3_log(gap[:3, :3]))))
+        igaps.append(info_gap(ans["information"], want["information"]))
+    if mgaps:
+        out["plane_match_gap"] = max(mgaps)
+        out["plane_pose_gap_m"] = max(pgaps_m)
+        out["plane_pose_gap_rad"] = max(pgaps_r)
+        out["plane_info_gap"] = max(igaps)
     return out
 
 
@@ -295,7 +404,9 @@ def judge(nums: dict, limits: dict) -> tuple[bool, dict]:
     ok = True
     for name, limit in limits.items():
         v = nums.get(name)
-        checks[name] = {"value": v, "limit": limit}
-        if v is None or not np.isfinite(v) or v > limit:
+        finite = v is not None and bool(np.isfinite(v))
+        # a value that is not finite goes on the result line as its name
+        checks[name] = {"value": v if v is None or finite else str(v), "limit": limit}
+        if not finite or v > limit:
             ok = False
     return ok, checks

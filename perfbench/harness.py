@@ -114,22 +114,25 @@ def _frame_failed(ev) -> bool:
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, t0: float,
              device: str = "cuda", subsample: int = 1, max_frames: int | None = None,
              control: bool = False, bench: dict | None = None,
-             traffic_overrides: dict | None = None) -> dict:
+             traffic_overrides: dict | None = None, cfg_file: dict | None = None,
+             limits: dict | None = None) -> dict:
     """One run; returns the result line's content (without `device`'s
     card fields), with the compared numbers under `checks`.  `max_frames`
     ends the window after that many frames instead of `seconds`, and
     `traffic_overrides` replaces traffic parameters (the CPU tests);
-    `control` also computes the control's numbers."""
+    `cfg_file` and `limits` stand in for the cell's configuration file and
+    limits file (a test's configuration that has no cell yet); `control`
+    also computes the control's numbers."""
     import torch
 
     from perfbench import check, scene
 
     bench = bench or load_json(ROOT / "BENCHMARK.json")
     cell = next(w for w in bench["workloads"] if w["name"] == workload)
-    cfg_file = load_json(HERE / "configs" / f"{cell['config']}.json")
+    cfg_file = cfg_file or load_json(HERE / "configs" / f"{cell['config']}.json")
     traffic = {**load_json(HERE / "traffic" / f"{cell['traffic']}.json"),
                **(traffic_overrides or {})}
-    limits = load_json(HERE / "limits" / f"{workload}.json")
+    limits = limits or load_json(HERE / "limits" / f"{workload}.json")
 
     from rgbd360_tpu_torch.core.frame import FrameBuilder
     from rgbd360_tpu_torch.io.calib import Calibration
@@ -244,10 +247,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t0: float,
     dense = {k: getattr(d, k) for k in (
         "min_depth", "max_depth", "pyramid_levels", "std_photo", "std_depth", "sal_intensity",
         "sal_depth", "max_iters_per_level", "tol_update", "tol_residual")}
+    m = cfg.matcher
+    matcher = {k: getattr(m, k) for k in (
+        "min_planes_recognition", "unary_dist_d", "unary_angle_deg", "hue_threshold",
+        "area_threshold", "elongation_threshold", "binary_dist_threshold",
+        "binary_angle_threshold_deg", "height_threshold", "max_matches")}
     rig_args = (cal["rt"], cal["k"], (cfg.sphere.height, cfg.sphere.width),
                 (cfg.rig.height, cfg.rig.width), cal["mult"], cal["counts"], cal["bin_w"],
                 cal["bin_h"], cal["bin_depth"], device)
-    nums = check.numbers(rec, rig_args, traf.frame, dense)
+    nums = check.numbers(rec, rig_args, traf.frame, dense, matcher)
     correct, checks = check.judge(nums, limits)
     # a frame that raised or came back lost is a wrong answer
     checks["failed_frames"] = {"value": failed, "limit": 0}
@@ -280,7 +288,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t0: float,
         out["device"].update(busy_s=tr.busy_s(), window_s=tr.window_s())
         out["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
     if control:
-        out["control"] = check.numbers(rec, rig_args, traf.frame, dense, control=True)
+        out["control"] = check.numbers(rec, rig_args, traf.frame, dense, matcher,
+                                       control=True)
         out["control_correct"] = check.judge(out["control"], limits)[0]
     out["checks"] = checks
     return out

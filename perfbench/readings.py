@@ -47,7 +47,7 @@ def main(argv=None) -> int:
                                control=seed in ctrl)
         nums = {k: v["value"] for k, v in out["checks"].items()}
         for k, v in nums.items():
-            lower[k] = max(lower.get(k, 0.0), v if v is not None else float("inf"))
+            lower[k] = max(lower.get(k, 0.0), float(v) if v is not None else float("inf"))
         for k, v in out.get("control", {}).items():
             upper[k] = min(upper.get(k, float("inf")), v)
         print(json.dumps({"seed": seed, "correct": out["correct"], "numbers": nums,

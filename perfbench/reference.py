@@ -22,6 +22,10 @@ for the control.
   residuals at level 0, and the coarse-to-fine Gauss-Newton solve on them.
 - `graph_solve`: Levenberg-Marquardt on the SE(3) pose graph, with Dynamic
   Covariance Scaling on the loop edges.
+- `plane_register` and its parts (`plane_candidates`, `plane_consistency`,
+  `plane_votes`, `plane_pose`): the PbMap registration of two plane sets,
+  the match set and the pose with its information matrix (the section's
+  own doc says where it departs from the C++ reference).
 """
 
 from __future__ import annotations
@@ -541,3 +545,254 @@ def graph_solve(poses, edges_ij, rel, info, is_loop, dcs_phi: float, max_iters: 
         else:
             lm *= lm_step
     return p
+
+
+# ------------------------------------------------------ plane registration
+#
+# The C++ reference (mrpt's PbMap `Subgraph` matcher behind
+# `RegisterRGBD360`) grows its match set by an interpretation tree: a
+# depth-first search over plane pairs that keeps the largest set whose
+# pairs pass the unary gates and are consistent two by two.  What is
+# written here is the registration the configuration states, which departs
+# from that tree in these ways:
+#
+# - the match set is grown greedily: every live pair (it passes the unary
+#   gates and is consistent with every pair taken so far, and neither of
+#   its planes is taken) gets a vote, its area weight times the sum of the
+#   area weights of the live pairs consistent with it; the pair of the
+#   highest vote is taken, the first of tied votes in row-major order of
+#   (reference plane, target plane), for at most `max_matches` steps or
+#   until no live pair is left.  The tree's largest consistent set is not
+#   searched for;
+# - the binary gates are the tree's three (angle between normals, distance
+#   between centres, height of one centre over the other plane), with the
+#   height tolerance three times `height_threshold`;
+# - the pose is closed-form: a weighted SVD rotation of the normals and an
+#   eigen-truncated least-squares translation, refined by Huber IRLS and
+#   two redescending passes (`plane_pose`), where the C++ reference hands
+#   the match set to mrpt's `ConsistencyTest::estimatePoseWithCovariance`;
+# - the degree gates are computed in float32 on the host (a float32 gate
+#   compares exactly against the float32 value), as a float32 program
+#   computes them.
+#
+# Against the program's arithmetic: the sums over the three coordinates of
+# a normal are elementwise products summed, where the program may use a
+# matrix product, and the pose is solved over the n matched pairs alone,
+# where the program carries `max_matches` slots with zero weight; both move
+# results by rounding only.
+
+# registration modes, numbered as `RegisterRGBD360.h` numbers them
+DEFAULT_6DOF, PLANAR_3DOF, ODOMETRY_6DOF, PLANAR_ODOMETRY_3DOF = 0, 1, 2, 3
+# the per-plane fields the registration reads
+PLANE_FIELDS = ("valid", "normal", "d", "center", "area", "elongation", "hue_hist")
+
+
+def _f32_angle(deg: float, fn=None) -> float:
+    """`deg` in radians, or fn of it, computed in float32 on the host."""
+    x = torch.deg2rad(torch.tensor(deg, dtype=torch.float32))
+    return float(fn(x) if fn is not None else x)
+
+
+def _dot(a, b):
+    """(..., 3) . (..., 3), the products summed."""
+    return (a * b).sum(-1)
+
+
+def plane_candidates(ref: dict, trg: dict, cfg: dict, mode: int) -> torch.Tensor:
+    """(K1, K2) bool: which pairs (plane i of `ref`, plane j of `trg`) pass
+    the unary gates: both valid; the ratios of larger to smaller area and
+    elongation under `area_threshold` and `elongation_threshold`; the
+    Bhattacharyya coefficient of the hue histograms over 1 -
+    `hue_threshold`; in the odometry modes the normals within
+    `unary_angle_deg` and the offsets d within `unary_dist_d`; in the planar
+    modes the up components (x) of the normals within 0.2 of each other."""
+
+    def ratio(key):
+        a, b = ref[key][:, None], trg[key][None, :]
+        return torch.maximum(a, b) / torch.clamp(torch.minimum(a, b), min=1e-6)
+
+    h1 = torch.clamp(ref["hue_hist"], min=0.0)[:, None, :]
+    h2 = torch.clamp(trg["hue_hist"], min=0.0)[None, :, :]
+    ok = (ref["valid"][:, None] & trg["valid"][None, :]
+          & (ratio("area") < cfg["area_threshold"])
+          & (ratio("elongation") < cfg["elongation_threshold"])
+          & (torch.sqrt(h1 * h2).sum(-1) > 1.0 - cfg["hue_threshold"]))
+    n1, n2 = ref["normal"], trg["normal"]
+    if mode in (ODOMETRY_6DOF, PLANAR_ODOMETRY_3DOF):
+        ok = ok & (_dot(n1[:, None, :], n2[None, :, :])
+                   > _f32_angle(cfg["unary_angle_deg"], torch.cos))
+        ok = ok & (torch.abs(ref["d"][:, None] - trg["d"][None, :]) < cfg["unary_dist_d"])
+    if mode in (PLANAR_3DOF, PLANAR_ODOMETRY_3DOF):
+        up = torch.abs(n1[:, 0])[:, None] - torch.abs(n2[:, 0])[None, :]
+        ok = ok & (torch.abs(up) < 0.2)
+    return ok
+
+
+def plane_consistency(ref: dict, trg: dict, cand: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """(K1 K2, K1 K2) bool, row i K2 + j and column k K2 + l: both pairs
+    are candidates, they share no plane unless they are the same pair, and
+    the relations of planes i and k in `ref` match those of j and l in
+    `trg`: the angle between the normals within
+    `binary_angle_threshold_deg`, the distance between the centres within
+    `binary_dist_threshold`, the height of centre k over plane i within 3
+    `height_threshold`."""
+
+    def relations(p):
+        n, c = p["normal"], p["center"]
+        ang = torch.arccos(torch.clamp(_dot(n[:, None, :], n[None, :, :]), -1.0, 1.0))
+        dist = torch.linalg.norm(c[:, None, :] - c[None, :, :], dim=-1)
+        height = _dot(n[:, None, :], c[None, :, :]) + p["d"][:, None]
+        return ang, dist, height
+
+    k1, k2 = cand.shape
+    ok = cand[:, :, None, None] & cand[None, None, :, :]
+    tols = (_f32_angle(cfg["binary_angle_threshold_deg"]), cfg["binary_dist_threshold"],
+            cfg["height_threshold"] * 3)
+    for x1, x2, tol in zip(relations(ref), relations(trg), tols):
+        ok = ok & (torch.abs(x1[:, None, :, None] - x2[None, :, None, :]) < tol)
+    dev = cand.device
+    same_i = torch.eye(k1, dtype=torch.bool, device=dev)[:, None, :, None]
+    same_j = torch.eye(k2, dtype=torch.bool, device=dev)[None, :, None, :]
+    return (ok & ~(same_i ^ same_j)).reshape(k1 * k2, k1 * k2)
+
+
+def plane_vote_weights(ref: dict, trg: dict) -> torch.Tensor:
+    """(K1, K2): a pair's area weight, sqrt(area_i area_j), each area at
+    least 1e-3."""
+    return torch.sqrt(torch.clamp(ref["area"][:, None], min=1e-3)
+                      * torch.clamp(trg["area"][None, :], min=1e-3))
+
+
+def plane_votes(cons: torch.Tensor, live: torch.Tensor, w: torch.Tensor,
+                dtype=torch.float32) -> torch.Tensor:
+    """(K1, K2): each live pair's vote, its weight times the sum of the
+    weights of the live pairs consistent with it; -1 where not live.  In
+    `dtype` (bfloat16 for the control)."""
+    lw = torch.where(live, w, 0.0).reshape(-1).to(dtype)
+    v = (cons.to(dtype) @ lw).reshape(live.shape) * w.to(dtype)
+    return torch.where(live, v, -1.0)
+
+
+def plane_live_after(live: torch.Tensor, cons: torch.Tensor, i: int, j: int) -> torch.Tensor:
+    """The live pairs once (i, j) is taken: those consistent with it whose
+    planes are not i or j."""
+    k1, k2 = live.shape
+    nxt = live & cons[i * k2 + j].reshape(k1, k2)
+    nxt[i, :] = False
+    nxt[:, j] = False
+    return nxt
+
+
+def plane_greedy(cons: torch.Tensor, cand: torch.Tensor, w: torch.Tensor, max_matches: int,
+                 dtype=torch.float32) -> list:
+    """The match set [(i, j), ...] in the order taken (the section's doc)."""
+    k2 = cand.shape[1]
+    live, picks = cand, []
+    for _ in range(int(max_matches)):
+        votes = plane_votes(cons, live, w, dtype).reshape(-1)
+        best = int(torch.argmax(votes))  # the first of tied votes
+        if not float(votes[best]) > 0.0:
+            break
+        i, j = divmod(best, k2)
+        picks.append((i, j))
+        live = plane_live_after(live, cons, i, j)
+    return picks
+
+
+def _huber_irls(r, s):
+    a = torch.abs(r)
+    return torch.where(a < s, 1.0, s / torch.clamp(a, min=1e-12))
+
+
+def plane_pose(ref: dict, trg: dict, pairs, cfg: dict, dtype=torch.float32) -> dict:
+    """The pose T_ref<-trg of matched pairs [(i, j), ...], its information
+    matrix and `success`, as the configuration states them.  With normals
+    n1, n2 and offsets d1, d2 of the pairs and weights w: R maximises
+    sum w (R n2) . n1 (the SVD of sum w n1 n2^T, its determinant fixed to
+    +1); t solves w n1 . t = w (d2 - d1) in least squares through the
+    eigenvectors of A^T A (A = w n1), directions of eigenvalue 0.25 or less
+    left at 0.  Weights start at 1; two Huber passes (0.05 m on the offset
+    residual n1 . t - (d2 - d1), 0.002 on the normal residual 1 - n1 . R
+    n2) and two redescending passes follow, each solving again.  A
+    redescending pass keeps a pair whose residuals lie under 4 times their
+    weighted RMS (at least 0.15 m and 0.01) and revokes a kept pair whose
+    normal lies within ~15 degrees (|n1 . n1'| > 0.966) of a cut pair's
+    unless another kept pair of that direction supports it.  The
+    information matrix is A^T A (translation) beside sum w J^T J with J =
+    -[R n2]x (rotation), at the last weights.  `success`: at least 3 pairs,
+    det(A^T A) over 1e-9 and at least `min_planes_recognition` pairs; the
+    pose is the identity otherwise.  Arithmetic in `dtype` (bfloat16 for
+    the control), the SVD, eigen-decomposition and determinants in float32
+    of its values."""
+    dev = ref["normal"].device
+    idx = torch.as_tensor(list(pairs), dtype=torch.long, device=dev).reshape(-1, 2)
+    n = idx.shape[0]
+    n1 = ref["normal"][idx[:, 0]].to(dtype)
+    n2 = trg["normal"][idx[:, 1]].to(dtype)
+    dd = trg["d"][idx[:, 1]].to(dtype) - ref["d"][idx[:, 0]].to(dtype)
+
+    def solve(w):
+        corr = (n1 * w[:, None]).T @ n2
+        u, _, vt = torch.linalg.svd(corr.float())
+        fix = torch.ones(3, device=dev)
+        fix[2] = torch.linalg.det(u @ vt)
+        rot = ((u * fix[None, :]) @ vt).to(dtype)
+        a = n1 * w[:, None]
+        ata = a.T @ a
+        atb = a.T @ (dd * w)
+        evals, evecs = torch.linalg.eigh(ata.float())
+        inv = torch.where(evals > 0.25, 1.0 / torch.clamp(evals, min=1e-12), 0.0)
+        evecs = evecs.to(dtype)
+        t = evecs @ (inv.to(dtype) * (evecs.T @ atb))
+        return rot, t, ata
+
+    def residuals(rot, t):
+        return n1 @ t - dd, 1.0 - _dot(n1, n2 @ rot.T)
+
+    w = torch.ones(n, dtype=dtype, device=dev)
+    rot, t, ata = solve(w)
+    for _ in range(2):
+        r_t, r_r = residuals(rot, t)
+        w = _huber_irls(r_t, 0.05) * _huber_irls(r_r, 0.002)
+        rot, t, ata = solve(w)
+    same_dir = torch.abs(n1 @ n1.T) > 0.966
+    for _ in range(2):
+        r_t, r_r = residuals(rot, t)
+        wsum = torch.clamp(w.sum(), min=1e-9)
+        thr_t = torch.clamp(4.0 * torch.sqrt((w * r_t * r_t).sum() / wsum), min=0.15)
+        thr_r = torch.clamp(4.0 * torch.sqrt((w * r_r * r_r).sum() / wsum), min=0.01)
+        keep = (torch.abs(r_t) < thr_t) & (r_r < thr_r)
+        cut = (w > 0) & ~keep
+        suspect = (same_dir & cut[None, :]).any(-1)
+        support = (same_dir & (keep & (w > 0))[None, :]).sum(-1) - 1
+        keep = keep & (~suspect | (support >= 1))
+        w = torch.where(keep, w, 0.0)
+        rot, t, ata = solve(w)
+
+    rn2 = n2 @ rot.T
+    z = torch.zeros_like(rn2[:, 0])
+    jr = -torch.stack([torch.stack([z, -rn2[:, 2], rn2[:, 1]], -1),
+                       torch.stack([rn2[:, 2], z, -rn2[:, 0]], -1),
+                       torch.stack([-rn2[:, 1], rn2[:, 0], z], -1)], -2)
+    info = torch.zeros((6, 6), device=dev)
+    info[:3, :3] = ata.float()
+    info[3:, 3:] = (w[:, None, None] * (jr.mT @ jr)).sum(0).float()
+    success = (n >= 3 and bool(torch.linalg.det(ata.float()) > 1e-9)
+               and n >= int(cfg["min_planes_recognition"]))
+    pose = torch.eye(4, device=dev)
+    if success:
+        pose[:3, :3] = rot.float()
+        pose[:3, 3] = t.float()
+    return {"pose": pose, "information": info, "success": success}
+
+
+def plane_register(ref: dict, trg: dict, cfg: dict, mode: int, dtype=torch.float32) -> dict:
+    """T_ref<-trg from two plane sets ({field: tensor} of `PLANE_FIELDS`,
+    K planes each): the unary gates of `mode`, the binary consistency, the
+    greedy match set and `plane_pose` of it.  Returns `plane_pose`'s dict
+    with `pairs` [(i, j), ...].  The votes and the pose in `dtype`, the
+    gates in float32."""
+    cand = plane_candidates(ref, trg, cfg, mode)
+    cons = plane_consistency(ref, trg, cand, cfg)
+    pairs = plane_greedy(cons, cand, plane_vote_weights(ref, trg), cfg["max_matches"], dtype)
+    return {"pairs": pairs, **plane_pose(ref, trg, pairs, cfg, dtype)}

@@ -114,13 +114,30 @@ def test_metrics_resolve_and_every_cell_reports_enough():
         assert _reports(cell, "per_layer")
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
-def test_limits_name_known_numbers(cell):
-    limits = json.loads((HERE / "limits" / f"{cell}.json").read_text())
-    known = {"sphere_share", "pyramid_share", "track_pose_gap_m", "track_pose_gap_rad",
-             "track_hessian_gap", "track_residual_gap", "graph_cost_excess"}
-    assert limits and set(limits) <= known
+def _numbers_the_check_writes() -> set:
+    """The names `check.numbers` stores a number under (`out["<name>"] = `)."""
+    tree = ast.parse((HERE / "check.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "numbers")
+    return {t.slice.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Subscript) and isinstance(t.value, ast.Name)
+            and t.value.id == "out" and isinstance(t.slice, ast.Constant)}
+
+
+def test_the_check_writes_every_number_it_has():
+    assert _numbers_the_check_writes() == {
+        "sphere_share", "pyramid_share", "track_pose_gap_m", "track_pose_gap_rad",
+        "track_hessian_gap", "track_residual_gap", "graph_cost_excess", "plane_match_gap",
+        "plane_pose_gap_m", "plane_pose_gap_rad", "plane_info_gap"}
+
+
+@pytest.mark.parametrize("path", sorted((HERE / "limits").glob("*.json")), ids=lambda p: p.stem)
+def test_limits_name_known_numbers(path):
+    """Every limits file (a cell's, or one no cell has yet) names only
+    numbers `check.numbers` can produce."""
+    limits = json.loads(path.read_text())
+    assert limits and set(limits) <= _numbers_the_check_writes()
     assert all(v >= 0 for v in limits.values())
+    assert path.stem in {w["name"] for w in BENCH["workloads"]}
 
 
 def test_layers_are_named_alike():

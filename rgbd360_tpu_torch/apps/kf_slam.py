@@ -123,17 +123,31 @@ def plane_ba(slam) -> dict:
             "iters": iters}
 
 
-def run(ds, builder, pbmap: bool = False, plane_ba_: bool = False, gt=None,
-        timing: bool = False, out=None):
-    """Keyframe SLAM (`KeyframeSLAM`, or `PbMapGraphSLAM` when `pbmap`)
-    over every frame of the dataset `ds` on the builder's device, then the
-    optional planar BA, the ATE / RPE against the ground-truth file `gt`,
-    the stage times and the map export into `out`.  Returns (tracker, the
-    planar BA's result or None)."""
+def make_tracker(builder, pbmap: bool = False):
+    """The tracker `run` drives: `KeyframeSLAM` on the builder's
+    configuration, or with `pbmap` `PbMapGraphSLAM` with its pose graph
+    solved in float64, as the reference's `SphereGraphSLAM` solves it in
+    g2o's double (on plane-tracked graphs, whose wall-only edges leave the
+    vertical to the priors, a float32 LM stops short of that optimum;
+    `GraphConfig.dtype`)."""
     from rgbd360_tpu_torch.slam.odometry import KeyframeSLAM
     from rgbd360_tpu_torch.slam.pbmap_slam import PbMapGraphSLAM
 
-    slam = PbMapGraphSLAM(builder) if pbmap else KeyframeSLAM(builder)
+    if not pbmap:
+        return KeyframeSLAM(builder)
+    cfg = builder.config
+    return PbMapGraphSLAM(builder, cfg.replace(graph=dataclasses.replace(cfg.graph,
+                                                                         dtype="float64")))
+
+
+def run(ds, builder, pbmap: bool = False, plane_ba_: bool = False, gt=None,
+        timing: bool = False, out=None):
+    """Keyframe SLAM (`make_tracker`: `KeyframeSLAM`, or `PbMapGraphSLAM`
+    when `pbmap`) over every frame of the dataset `ds` on the builder's
+    device, then the optional planar BA, the ATE / RPE against the
+    ground-truth file `gt`, the stage times and the map export into `out`.
+    Returns (tracker, the planar BA's result or None)."""
+    slam = make_tracker(builder, pbmap)
     if timing:
         slam.timer.enable()
     for i, raw in enumerate(ds):
@@ -187,7 +201,8 @@ def main(argv=None):
     p.add_argument("dataset")
     p.add_argument("--out", default=None)
     p.add_argument("--pbmap", action="store_true",
-                   help="PbMap-tracking graph SLAM (reference SphereGraphSLAM)")
+                   help="PbMap-tracking graph SLAM (reference SphereGraphSLAM), its pose "
+                   "graph solved in float64 as the reference's g2o solves it")
     p.add_argument("--timing", action="store_true",
                    help="record the tracker's spans and print host ms by span name, "
                    "total and self time (less the spans inside), and the counters; "

@@ -7,15 +7,21 @@ constraints (`config_files/configLocaliser_sphericalOdometry.ini`).  Here all
 of it is a single immutable dataclass tree whose defaults reproduce the
 reference behavior; instances are hashable.  This is a copy of
 `rgbd360_tpu/config.py`, field for field (`convert.config_from_reference`
-rebuilds one from the other).  Where a field's comment cites a measurement
-or a "round", it is the reference package's on its TPU, kept as the reason
-for the default; none is a measurement of this port.
+rebuilds one from the other), and the fields of `PORT_FIELDS`, which the
+reference package lacks: at their defaults they compute what it computes.
+Where a field's comment cites a measurement or a "round", it is the
+reference package's on its TPU, kept as the reason for the default; none is
+a measurement of this port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+# fields of the port's configuration that the reference package's lacks, by
+# class; at its default each leaves the port's path the reference's
+PORT_FIELDS = {"GraphConfig": ("dtype",)}
 
 
 @dataclass(frozen=True)
@@ -410,6 +416,13 @@ class GraphConfig:
     # broken `RRR.hpp` include reached for; `include/GraphOptimizer.h:28`).
     robust_lc: bool = True
     dcs_phi: float = 10.0
+    # The precision the whole LM computes in ("float32" or "float64"): edge
+    # terms, DCS scale, normal equations, the damped solve, the cost and the
+    # accept test (`slam/graph.py`).  The reference's g2o solves in double;
+    # float32 is the JAX package's.  On the PbMap tracker's graphs (plane
+    # edges with no vertical translation, condition numbers up to ~1e10)
+    # a float32 solve stops short of the cost a double one reaches.
+    dtype: str = "float32"
 
 
 @dataclass(frozen=True)

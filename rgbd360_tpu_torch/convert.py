@@ -40,17 +40,27 @@ from rgbd360_tpu_torch.io.calib import Calibration
 def _rebuild(obj, module):
     """The dataclass of `obj`'s class name in `module`, rebuilt from `obj`
     field by field (nested dataclasses too); a missing or extra field
-    raises."""
+    raises, except the port's own fields (`config.PORT_FIELDS`): into the
+    port they take their defaults, and out of it they are left behind
+    where they hold their defaults (elsewhere the reference cannot state
+    the configuration, and that raises)."""
     cls = getattr(module, type(obj).__name__)
     names = {f.name for f in dataclasses.fields(cls)}
     have = {f.name for f in dataclasses.fields(obj)}
-    if names != have:
+    own = set(_config.PORT_FIELDS.get(cls.__name__, ()))
+    if (names ^ have) - own:
         raise TypeError(
             f"{cls.__module__}.{cls.__name__} and {type(obj).__module__}."
-            f"{type(obj).__name__} differ in fields {sorted(names ^ have)}"
+            f"{type(obj).__name__} differ in fields {sorted((names ^ have) - own)}"
         )
+    for f in dataclasses.fields(obj):
+        if f.name not in names and getattr(obj, f.name) != f.default:
+            raise ValueError(
+                f"{type(obj).__name__}.{f.name} = {getattr(obj, f.name)!r}: "
+                f"{cls.__module__} has no such field"
+            )
     values = {}
-    for name in names:
+    for name in names & have:
         v = getattr(obj, name)
         values[name] = _rebuild(v, module) if dataclasses.is_dataclass(v) else v
     return cls(**values)

@@ -63,7 +63,15 @@ def _vee_asym(r: torch.Tensor) -> torch.Tensor:
 
 
 def so3_log(r: torch.Tensor) -> torch.Tensor:
-    """Log map of SO(3); returns the rotation vector."""
+    """Log map of SO(3); returns the rotation vector.
+
+    float32 keeps the JAX package's arithmetic and its guards.  float64 (the
+    pose graph's solve in double, as the reference's g2o) drops the guards
+    where they bias the result above double's rounding: theta / sin(theta)
+    is divided exactly (float32's _EPS in the denominator biases it by
+    _EPS / (2 theta), 5e-5 at 1e-4 rad), and near pi the axis is the
+    largest column of the symmetric part (`_axis_near_pi`)."""
+    exact = r.dtype == torch.float64
     trace = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     theta = torch.arccos(cos_t)
@@ -71,21 +79,40 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
     v = _vee_asym(r)
     scale = torch.where(
         torch.abs(sin_t) > _EPS,
-        theta / (2.0 * sin_t + _EPS),
+        theta / (2.0 * sin_t + (0.0 if exact else _EPS)),
         0.5 + theta * theta / 12.0,
     )
     w = scale[..., None] * v
     # Near theta = pi the vee form degenerates; recover the axis from the
     # diagonal.
     near_pi = theta > 3.0
-    diag = torch.stack([r[..., 0, 0], r[..., 1, 1], r[..., 2, 2]], dim=-1)
-    axis_sq = torch.clamp(
-        (diag - cos_t[..., None]) / (1.0 - cos_t[..., None] + _EPS), min=0
-    )
-    axis = torch.sqrt(axis_sq)
-    signs = torch.sign(v + _EPS)
-    w_pi = theta[..., None] * axis * signs
+    if exact:
+        w_pi = theta[..., None] * _axis_near_pi(r, cos_t, v)
+    else:
+        diag = torch.stack([r[..., 0, 0], r[..., 1, 1], r[..., 2, 2]], dim=-1)
+        axis_sq = torch.clamp(
+            (diag - cos_t[..., None]) / (1.0 - cos_t[..., None] + _EPS), min=0
+        )
+        axis = torch.sqrt(axis_sq)
+        signs = torch.sign(v + _EPS)
+        w_pi = theta[..., None] * axis * signs
     return torch.where(near_pi[..., None], w_pi, w)
+
+
+def _axis_near_pi(r, cos_t, v):
+    """The rotation axis of `r` (angle near pi) as the largest column of
+    (R + R^T - 2 cos(theta) I) / (2 (1 - cos(theta))) = a a^T, signed to
+    agree with the antisymmetric part `v`: its small components come from
+    products with the large one, not from square roots of differences of
+    the diagonal, so a matrix orthogonal only to float32's rounding (a
+    graph's stored measurement) still gives them."""
+    eye = torch.eye(3, dtype=r.dtype, device=r.device)
+    aat = (r + r.mT - 2.0 * cos_t[..., None, None] * eye) / torch.clamp(
+        2.0 * (1.0 - cos_t), min=1e-12)[..., None, None]
+    k = torch.argmax(torch.diagonal(aat, dim1=-2, dim2=-1), dim=-1)
+    col = torch.take_along_dim(aat, k[..., None, None].expand(*k.shape, 3, 1), dim=-1)[..., 0]
+    axis = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=1e-30)
+    return torch.where(torch.sum(axis * v, -1, keepdim=True) < 0, -axis, axis)
 
 
 def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,7 @@ from rgbd360_tpu_torch.slam import plane_ba as B
 from rgbd360_tpu_torch.slam.graph import (
     PoseGraph,
     _edge_terms,
+    _in_dtype,
     _incidence,
     _lm_loop,
     _prior_diag,
@@ -318,6 +319,7 @@ def distributed_pose_graph_pcg(
     loop_mask: torch.Tensor | None = None,
     dcs_phi: float = 10.0,
     cg_counts: list | None = None,
+    dtype: str | torch.dtype | None = None,
 ):
     """Edge- AND vertex-sharded, matrix-free pose-graph LM-PCG.
 
@@ -327,9 +329,11 @@ def distributed_pose_graph_pcg(
     local edge sweep -> psum_scatter(y).  With `loop_mask`, the marked edges
     are robustified by DCS on the local shard (a per-edge formula).  The
     residual model, LM schedule and stopping rules are
-    `slam.graph.optimize_pose_graph_pcg`'s; `cg_counts`, when given,
-    receives each LM iteration's CG count.  Returns (poses, chi2, iters).
-    The vertex and edge capacities must divide by the mesh size."""
+    `slam.graph.optimize_pose_graph_pcg`'s, and so is its precision
+    (`dtype`); `cg_counts`, when given, receives each LM iteration's CG
+    count.  Returns (poses, chi2, iters).  The vertex and edge capacities
+    must divide by the mesh size."""
+    graph = _in_dtype(graph, dtype)
     n = graph.poses.shape[0]
     e_cap = graph.edges_ij.shape[0]
     if n % mesh.size or e_cap % mesh.size:

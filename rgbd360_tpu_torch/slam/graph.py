@@ -15,13 +15,21 @@ H's blocks are sum_e D[e,a] D[e,b] h_e, b is D^T b_e, the matvec is
 D^T (m_e (D x)), and the block diagonal is (S_i + S_j)^T m_e.
 
 The reference's two `lax.while_loop`s are Python loops here that read their
-condition with ONE host sync per iteration (the LM loop reads `done`, the CG
-loop its convergence test), which gives the reference's iteration counts,
-accept/reject decisions and early exits.
+condition with ONE host sync per iteration (the LM loop reads whether the
+step was taken and `done`, the CG loop its convergence test), which gives
+the reference's iteration counts, accept/reject decisions and early exits.
+Every LM iteration and every rejected step adds to `LM_COUNTS`.
+
+Both solvers compute in the `dtype` they are given (`GraphConfig.dtype`;
+the graph's own by default): the edge terms, the DCS scale, the normal
+equations, the damped solve, the cost and the accept test.  They return
+the poses and chi2 in that precision; a float32 map rounds the poses as it
+stores them (`Map360.with_optimized`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -58,6 +66,21 @@ class PoseGraph:
             info=torch.eye(6, device=device).repeat(e, 1, 1),
             emask=torch.zeros((e,), dtype=torch.bool, device=device),
         )
+
+
+# every LM iteration of every solve, and the steps rejected among them
+LM_COUNTS = {"iter": 0, "reject": 0}
+
+
+def _in_dtype(graph: PoseGraph, dtype) -> PoseGraph:
+    """`graph` with its poses, measurements and information in `dtype` (a
+    torch dtype or its name, as `GraphConfig.dtype` gives it; None keeps the
+    graph's own, and so does the graph's own dtype: the graph itself)."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dt is None or dt == graph.poses.dtype:
+        return graph
+    return dataclasses.replace(graph, poses=graph.poses.to(dt), rel=graph.rel.to(dt),
+                               info=graph.info.to(dt))
 
 
 def _edge_residuals(poses, graph: PoseGraph):
@@ -114,7 +137,9 @@ def _prior_diag(graph: PoseGraph, dtype):
     """(N, 6, 6): the gauge prior on vertex 0 and a tiny prior on live (a
     unit one on padded) vertices, so H stays SPD."""
     eye6 = torch.eye(6, dtype=dtype, device=graph.vmask.device)
-    scale = torch.where(graph.vmask, 1e-6, 1.0).to(dtype)
+    # 1e-6 rounded to `dtype`, not to float32 first
+    one = torch.ones_like(graph.vmask, dtype=dtype)
+    scale = torch.where(graph.vmask, 1e-6 * one, one)
     prior = scale[:, None, None] * eye6
     prior[0] += 1e6 * eye6
     return prior
@@ -135,8 +160,9 @@ def _graph_normal_equations(poses, graph: PoseGraph, dcs=None):
 
 def _lm_loop(graph: PoseGraph, max_iters: int, lm_lambda0, lm_step, chi2_of, step_of):
     """The LM schedule both solvers share: `step_of(poses, lam)` gives
-    (delta (N, 6), chi2 at poses), `chi2_of(poses)` the cost.  One host sync
-    per iteration (the loop condition's `done`)."""
+    (delta (N, 6), chi2 at poses), `chi2_of(poses)` the cost, all in the
+    graph's dtype.  One host sync per iteration: whether the step was
+    taken and the loop condition's `done`, read together."""
     poses = graph.poses
     lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
     chi2 = chi2_of(poses)
@@ -151,7 +177,9 @@ def _lm_loop(graph: PoseGraph, max_iters: int, lm_lambda0, lm_step, chi2_of, ste
         rel_impr = (chi2 - chi2_new) / torch.clamp(chi2, min=1e-12)
         chi2 = torch.where(improved, chi2_new, chi2)
         iters += 1
-        done = bool(improved & (rel_impr < 1e-6))
+        taken, done = torch.stack((improved, improved & (rel_impr < 1e-6))).tolist()
+        LM_COUNTS["iter"] += 1
+        LM_COUNTS["reject"] += not taken
     return poses, chi2, iters
 
 
@@ -162,27 +190,31 @@ def optimize_pose_graph(
     lm_step: float = 10.0,
     loop_mask: torch.Tensor | None = None,
     dcs_phi: float = 10.0,
+    dtype: str | torch.dtype | None = None,
 ):
     """Levenberg-Marquardt over the whole graph with a dense solve; returns
-    (poses, chi2, iters): tensors on the graph's device and a Python int.
+    (poses, chi2, iters): tensors on the graph's device in the solve's
+    precision, and a Python int.
 
     loop_mask: optional (E,) bool marking loop-closure edges; when given,
     those edges are robustified with Dynamic Covariance Scaling at kernel
     width `dcs_phi` (odometry edges stay hard), so wrong loop closures are
-    suppressed instead of folding the trajectory (see `_dcs_scale`)."""
-    n = graph.poses.shape[0]
+    suppressed instead of folding the trajectory (see `_dcs_scale`).
+    dtype: the precision of the whole solve (module doc)."""
+    g = _in_dtype(graph, dtype)
+    n = g.poses.shape[0]
     dcs = None if loop_mask is None else (loop_mask, dcs_phi)
-    eye = torch.eye(n * 6, dtype=graph.poses.dtype, device=graph.poses.device)
+    eye = torch.eye(n * 6, dtype=g.poses.dtype, device=g.poses.device)
 
     def step(poses, lam):
-        h, b, chi2 = _graph_normal_equations(poses, graph, dcs)
+        h, b, chi2 = _graph_normal_equations(poses, g, dcs)
         damped = h + lam * torch.diag(torch.diagonal(h)) + 1e-9 * eye
         delta = -torch.linalg.solve_ex(damped, b[:, None])[0][:, 0]
         return delta.reshape(n, 6), chi2
 
     return _lm_loop(
-        graph, max_iters, lm_lambda0, lm_step,
-        lambda poses: _edge_terms(poses, graph, dcs)[2], step,
+        g, max_iters, lm_lambda0, lm_step,
+        lambda poses: _edge_terms(poses, g, dcs)[2], step,
     )
 
 
@@ -264,20 +296,23 @@ def optimize_pose_graph_pcg(
     loop_mask: torch.Tensor | None = None,
     dcs_phi: float = 10.0,
     cg_counts: list | None = None,
+    dtype: str | torch.dtype | None = None,
 ):
     """LM with a matrix-free block-Jacobi PCG linear solver: the residual
-    model and LM schedule of `optimize_pose_graph`, but the (6N, 6N) normal
-    matrix is never built.  `cg_counts`, when given, receives each LM
-    iteration's CG iteration count.  Returns (poses, chi2, iters)."""
-    n = graph.poses.shape[0]
-    dtype = graph.poses.dtype
-    prior = _prior_diag(graph, dtype)
+    model, LM schedule and precision (`dtype`) of `optimize_pose_graph`, but
+    the (6N, 6N) normal matrix is never built.  `cg_counts`, when given,
+    receives each LM iteration's CG iteration count.  Returns (poses, chi2,
+    iters)."""
+    g = _in_dtype(graph, dtype)
+    n = g.poses.shape[0]
+    dt = g.poses.dtype
+    prior = _prior_diag(g, dt)
     dcs = None if loop_mask is None else (loop_mask, dcs_phi)
-    eye6 = torch.eye(6, dtype=dtype, device=graph.poses.device)
+    eye6 = torch.eye(6, dtype=dt, device=g.poses.device)
 
     def step(poses, lam):
-        m_e, b_j, chi2, i, j = _edge_terms(poses, graph, dcs)
-        d, p = _incidence(i, j, n, dtype)
+        m_e, b_j, chi2, i, j = _edge_terms(poses, g, dcs)
+        d, p = _incidence(i, j, n, dt)
         b = d.mT @ b_j
         bd0 = _block_diag(m_e, p, prior, 0.0 * prior)
         lm_diag = lam * bd0 * eye6  # damp the diagonal
@@ -292,6 +327,6 @@ def optimize_pose_graph_pcg(
         return delta, chi2
 
     return _lm_loop(
-        graph, max_iters, lm_lambda0, lm_step,
-        lambda poses: _edge_terms(poses, graph, dcs)[2], step,
+        g, max_iters, lm_lambda0, lm_step,
+        lambda poses: _edge_terms(poses, g, dcs)[2], step,
     )

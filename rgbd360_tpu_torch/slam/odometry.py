@@ -43,7 +43,7 @@ from rgbd360_tpu_torch.core.frame import FrameBuilder, RigFrame, SphereFrame
 from rgbd360_tpu_torch.ops import se3, stitch as stitch_ops
 from rgbd360_tpu_torch.registration import dense as D
 from rgbd360_tpu_torch.registration.planes import PLANAR_3DOF, PlaneRegistration
-from rgbd360_tpu_torch.slam.graph import optimize_pose_graph, optimize_pose_graph_pcg
+from rgbd360_tpu_torch.slam.graph import LM_COUNTS, optimize_pose_graph, optimize_pose_graph_pcg
 from rgbd360_tpu_torch.slam.loop_closure import LoopCloser, top_k_stable
 from rgbd360_tpu_torch.slam.map import Map360, tree_leaves
 from rgbd360_tpu_torch.slam.relocalizer import Relocalizer
@@ -83,6 +83,25 @@ def _gn_graph_counts(timer):
     finally:
         for k, v in D.GN_COUNTS.items():
             timer.counts[f"gn_graph.{k}"] += v - before[k]
+
+
+@contextlib.contextmanager
+def graph_solve_region(timer, n_kf: int, dtype: str):
+    """The `optimize` region around a pose-graph solve: its span carries
+    the keyframes the solve covers (`n_kf`), its precision (`dtype`), and
+    its LM iterations (`iters`) and rejected steps (`rejected`) from
+    `graph.LM_COUNTS`, which also go to the timer's `graph.lm_iter` and
+    `graph.lm_reject` counts."""
+    before = dict(LM_COUNTS)
+    with timer.region("optimize", n_kf=n_kf, dtype=dtype):
+        try:
+            yield
+        finally:
+            iters = LM_COUNTS["iter"] - before["iter"]
+            rejected = LM_COUNTS["reject"] - before["reject"]
+            timer.annotate(iters=iters, rejected=rejected)
+            timer.counts["graph.lm_iter"] += iters
+            timer.counts["graph.lm_reject"] += rejected
 
 
 def traced_frame(process):
@@ -846,24 +865,17 @@ class KeyframeSLAM(TrackerBase):
 
             return distributed_pose_graph_pcg(
                 self.mesh, self.map.graph, max_iters=g.max_iters, lm_lambda0=g.lm_lambda0,
-                lm_step=g.lm_step, loop_mask=loop_mask, dcs_phi=g.dcs_phi,
+                lm_step=g.lm_step, loop_mask=loop_mask, dcs_phi=g.dcs_phi, dtype=g.dtype,
             )
         if self.map.kf_capacity > g.pcg_threshold_kf:
             return optimize_pose_graph_pcg(
                 self.map.graph, g.max_iters, lm_lambda0=g.lm_lambda0, lm_step=g.lm_step,
-                loop_mask=loop_mask, dcs_phi=g.dcs_phi,
+                loop_mask=loop_mask, dcs_phi=g.dcs_phi, dtype=g.dtype,
             )
         return optimize_pose_graph(
             self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
-            loop_mask=loop_mask, dcs_phi=g.dcs_phi,
+            loop_mask=loop_mask, dcs_phi=g.dcs_phi, dtype=g.dtype,
         )
-
-    def _optimize(self):
-        with self.timer.region("optimize"):
-            poses, chi2, iters = self._optimize_dispatch()
-        self.map = self.map.with_optimized(poses)
-        self._opt_poses_host = None
-        return float(chi2), int(iters)
 
     # ------------------------------------------------------------ process
 
@@ -1272,7 +1284,7 @@ class KeyframeSLAM(TrackerBase):
         sso_f = None
         if optimized:
             n0 = self._n_kf_host  # keyframes the solve covers
-            with self.timer.region("optimize"):
+            with graph_solve_region(self.timer, n0, self.config.graph.dtype):
                 poses, chi2, _ = self._optimize_dispatch()
             self._nd()
             # the map is updated in place: the SSO matrix this event's
@@ -1288,7 +1300,7 @@ class KeyframeSLAM(TrackerBase):
             # solve was pending occupies a LATER slot, whose value in
             # `poses` is the pre-promotion padding
             if self._n_kf_host > n0:
-                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:]])
+                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:].to(poses.dtype)])
                 self._nd()
             self.map = self.map.with_optimized(poses)
             self._opt_poses_host = None

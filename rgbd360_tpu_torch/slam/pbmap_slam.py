@@ -34,7 +34,12 @@ from rgbd360_tpu_torch.registration.planes import PLANAR_ODOMETRY_3DOF
 from rgbd360_tpu_torch.slam.graph import optimize_pose_graph
 from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
 from rgbd360_tpu_torch.slam.map import Map360
-from rgbd360_tpu_torch.slam.odometry import TrackerBase, is_motion_continuous, traced_frame
+from rgbd360_tpu_torch.slam.odometry import (
+    TrackerBase,
+    graph_solve_region,
+    is_motion_continuous,
+    traced_frame,
+)
 from rgbd360_tpu_torch.utils.host import fetch
 
 
@@ -237,11 +242,11 @@ class PbMapGraphSLAM(TrackerBase):
         if lcs:
             g = self.config.graph
             n0 = self._n_kf_host  # keyframes the dispatched solve covers
-            with timer.region("optimize"):
+            with graph_solve_region(timer, n0, g.dtype):
                 poses, chi2, _ = optimize_pose_graph(
                     self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
                     loop_mask=self.map.edge_is_lc if g.robust_lc else None,
-                    dcs_phi=g.dcs_phi,
+                    dcs_phi=g.dcs_phi, dtype=g.dtype,
                 )
             self._nd()
             self._event_phase = "D"
@@ -252,7 +257,7 @@ class PbMapGraphSLAM(TrackerBase):
             # prefix-safe application: keyframes promoted while the solve
             # was in flight occupy later slots the solve never covered
             if self._n_kf_host > n0:
-                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:]])
+                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:].to(poses.dtype)])
                 self._nd()
             self.map = self.map.with_optimized(poses)
             self._opt_poses_host = None

@@ -23,20 +23,32 @@ _CONFIG_CLASSES = sorted(
 )
 
 
+def _asdict_shared(obj):
+    """`dataclasses.asdict` of a config dataclass without the port's own
+    fields (`config.PORT_FIELDS`), nested ones too."""
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    own = TC.PORT_FIELDS.get(type(obj).__name__, ())
+    return {f.name: _asdict_shared(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if f.name not in own}
+
+
 def test_default_config_equal():
-    assert dataclasses.asdict(TC.default_config()) == dataclasses.asdict(JC.default_config())
+    assert _asdict_shared(TC.default_config()) == dataclasses.asdict(JC.default_config())
     assert type(TC.default_config()).__module__ == "rgbd360_tpu_torch.config"
 
 
 @pytest.mark.parametrize("name", _CONFIG_CLASSES)
 def test_config_class_twin(name):
     """Every config dataclass of the reference has a twin of the same fields,
-    types and defaults, frozen and hashable like it."""
+    types and defaults, frozen and hashable like it; the port's own fields
+    (`PORT_FIELDS`) come last."""
     ref, port = getattr(JC, name), getattr(TC, name)
-    assert [(f.name, f.type) for f in dataclasses.fields(port)] == [
-        (f.name, f.type) for f in dataclasses.fields(ref)
-    ]
-    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    own = TC.PORT_FIELDS.get(name, ())
+    fields = [(f.name, f.type) for f in dataclasses.fields(port)]
+    assert fields[:len(fields) - len(own)] == [(f.name, f.type) for f in dataclasses.fields(ref)]
+    assert [n for n, _ in fields[len(fields) - len(own):]] == list(own)
+    assert _asdict_shared(port()) == dataclasses.asdict(ref())
     assert hash(port()) == hash(port())
     with pytest.raises(dataclasses.FrozenInstanceError):
         setattr(port(), dataclasses.fields(port)[0].name, 0)
@@ -56,11 +68,24 @@ def test_config_from_reference_round_trips():
     port = convert.config_from_reference(ref)
     assert type(port) is TC.FrameworkConfig and type(port.dense) is TC.DenseRegConfig
     assert port == _non_default(TC)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert _asdict_shared(port) == dataclasses.asdict(ref)
     back = convert.config_to_reference(port, JC)
     assert type(back) is JC.FrameworkConfig and back == ref
     # a part converts on its own
     assert convert.config_from_reference(ref.seg) == port.seg
+
+
+def test_port_fields_cross_at_their_defaults_only():
+    """The port's own fields: filled with their defaults from the
+    reference, left behind at their defaults, refused elsewhere (the
+    reference has no such configuration)."""
+    assert set(TC.PORT_FIELDS) <= set(_CONFIG_CLASSES)
+    port = convert.config_from_reference(JC.default_config())
+    assert port.graph.dtype == "float32" and port == TC.default_config()
+    assert convert.config_to_reference(port, JC) == JC.default_config()
+    f64 = port.replace(graph=dataclasses.replace(port.graph, dtype="float64"))
+    with pytest.raises(ValueError, match="dtype"):
+        convert.config_to_reference(f64, JC)
 
 
 def test_config_rebuild_refuses_other_fields():

@@ -323,6 +323,37 @@ def test_pbmap_tracker_spans(builder, raws):
     assert {spans[s.parent].name for s in spans if s.name == "register_pbmap"} == {"frame"}
 
 
+def test_pbmap_graph_solves_carry_their_lm_counts(builder, raws):
+    """The PbMap tracker with its graph solve in float64, over the first
+    half of the lap (the solves of a whole lap are alike): every
+    `optimize` span carries the solve's LM iterations, rejected steps,
+    keyframes and precision, and the timer's `graph.lm_iter` /
+    `graph.lm_reject` counts are their sums."""
+    from rgbd360_tpu_torch.slam import graph as TG
+
+    cfg = _cfg()
+    cfg = cfg.replace(graph=dataclasses.replace(cfg.graph, dtype="float64"))
+    slam = PbMapGraphSLAM(builder, cfg)
+    slam.timer.enable()
+    before = dict(TG.LM_COUNTS)
+    for raw in raws:
+        slam.process(raw)
+    slam.flush()
+    spans = slam.timer.take_spans()
+    opt = [s for s in spans if s.name == "optimize"]
+    assert opt and slam.n_loop_closures > 0
+    for s in opt:
+        assert {"iters", "rejected", "n_kf", "dtype"} <= set(s.attrs), s.attrs
+        assert 1 <= s.attrs["iters"] <= cfg.graph.max_iters
+        assert 0 <= s.attrs["rejected"] <= s.attrs["iters"]
+        assert 2 <= s.attrs["n_kf"] <= N and s.attrs["dtype"] == "float64"
+    counts = slam.timer.counts
+    assert counts["graph.lm_iter"] == sum(s.attrs["iters"] for s in opt)
+    assert counts["graph.lm_reject"] == sum(s.attrs["rejected"] for s in opt)
+    assert counts["graph.lm_iter"] == TG.LM_COUNTS["iter"] - before["iter"]
+    assert counts["graph.lm_reject"] == TG.LM_COUNTS["reject"] - before["reject"]
+
+
 def test_odometry_spans(builder, raws):
     odo = FrameToFrameOdometry(builder)
     odo.timer.enable()

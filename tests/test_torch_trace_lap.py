@@ -105,3 +105,23 @@ def test_gn_graph_counts_over_the_lap():
         "gn_graph.sweep": 60, "gn_graph.replay": 60, "gn_graph.capture": 0,
         "gn_graph.coarse": 3, "gn_graph.replay_share": 1.0}
     assert lap.gn_graph_counts({"kf_pyramid.hit": 1}) == {"gn_graph.replay_share": None}
+
+
+def test_graph_solves():
+    spans = _spans() + [
+        Span("optimize", 170 * MS, 175 * MS, 12, 1,
+             dict(n_kf=4, dtype="float64", iters=10, rejected=7)),
+        Span("optimize", 210 * MS, 215 * MS, 15, 1,
+             dict(n_kf=6, dtype="float64", iters=2, rejected=0)),
+    ]
+    assert lap.graph_solves(_spans()) is None
+    assert lap.graph_solves(spans) == {"solves": 2, "iters": 6.0, "rejected": 3.5, "n_kf": 5.0,
+                                       "dtype": ["float64"]}
+
+
+def test_graph_counts_are_read_beside_the_gn_graph_counts():
+    counts = {"gn_graph.sweep": 10, "gn_graph.replay": 8, "graph.lm_iter": 12,
+              "graph.lm_reject": 7, "optimize": 2}
+    got = lap.gn_graph_counts(counts, {"graph.lm_iter": 2, "gn_graph.sweep": 2})
+    assert got == {"gn_graph.sweep": 8, "gn_graph.replay": 8, "graph.lm_iter": 10,
+                   "graph.lm_reject": 7, "gn_graph.replay_share": 1.0}

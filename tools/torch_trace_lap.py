@@ -1,8 +1,9 @@
-"""The keyframe tracker's spans on the card: one traced lap of the
-benchmark's `kfslam.loop24` traffic read into the per-frame numbers of
-the tracker and its keyframe back-end, and what the tracer costs.
+"""A tracker's spans on the card: one traced lap of a benchmark cell's
+traffic (`kfslam.loop24` unless `--cell` names another) read into the
+per-frame numbers of the tracker and its keyframe back-end, and what the
+tracer costs.
 
-    python3 tools/torch_trace_lap.py --seeds 1 2 3 [--laps 2] [--out FILE]
+    python3 tools/torch_trace_lap.py --seeds 1 2 3 [--laps 2] [--cell C] [--out FILE]
 
 Needs a CUDA card.  Set-up is the benchmark cell's (`perfbench.harness`:
 the configuration, calibration and traffic files; a warm-up lap on a
@@ -28,7 +29,10 @@ The readers take the lap's spans (`utils.trace.Span`) and the start times
 per traced frame, or None where the program recorded no such span.  Beside
 them: the tracker's `kf_pyramid.*` counts over both laps, its `gn_graph.*`
 counts over the traced lap with the replay share of every dense solve's GN
-trips, and the tracking solves' own share (`track.replay_share`).
+trips, and the tracking solves' own share (`track.replay_share`); the graph
+solves' `optimize` spans (`graph_solves`: their count, LM iterations and
+rejected steps a solve, keyframes, precision) and the timer's
+`graph.lm_iter` / `graph.lm_reject` counts over the traced lap.
 """
 
 from __future__ import annotations
@@ -44,7 +48,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-CELL = "kfslam.loop24"
 
 PHASE = "event."  # event.A ... event.D, event.rescue; not event.fetch / event.drain
 BACKEND_WAITS = ("event.fetch", "event.drain")
@@ -158,6 +161,18 @@ READERS = {
 }
 
 
+def graph_solves(spans) -> dict | None:
+    """The lap's `optimize` spans: how many, the mean LM iterations and
+    rejected steps of a solve, the mean keyframes a solve covers and the
+    precisions they ran in; None without a solve."""
+    opt = [s for s in spans if s.name == "optimize"]
+    if not opt:
+        return None
+    out = {k: float(np.mean([s.attrs.get(k, np.nan) for s in opt]))
+           for k in ("iters", "rejected", "n_kf")}
+    return {"solves": len(opt), **out, "dtype": sorted({str(s.attrs.get("dtype")) for s in opt})}
+
+
 def read_all(spans, waits) -> dict:
     return {name: fn(spans, waits) for name, fn in READERS.items()}
 
@@ -172,11 +187,12 @@ def track_replay_share(spans):
 
 
 def gn_graph_counts(counts: dict, before: dict | None = None) -> dict:
-    """The timer's `gn_graph.*` counts less those in `before`, and
-    `gn_graph.replay_share`: every dense solve's GN trips replayed from a
-    CUDA graph over all their trips (None without trips)."""
+    """The timer's `gn_graph.*` and `graph.*` counts less those in
+    `before`, and `gn_graph.replay_share`: every dense solve's GN trips
+    replayed from a CUDA graph over all their trips (None without trips)."""
     before = before or {}
-    got = {k: v - before.get(k, 0) for k, v in counts.items() if k.startswith("gn_graph.")}
+    got = {k: v - before.get(k, 0) for k, v in counts.items()
+           if k.startswith(("gn_graph.", "graph."))}
     sweeps = got.get("gn_graph.sweep", 0)
     got["gn_graph.replay_share"] = got.get("gn_graph.replay", 0) / sweeps if sweeps else None
     return got
@@ -209,13 +225,13 @@ def clock_gaps(spans, ranges: dict) -> dict | None:
 # ------------------------------------------------------------------ on the card
 
 
-def _setup():
+def _setup(cell: str):
     from perfbench import harness
     from rgbd360_tpu_torch.core.frame import FrameBuilder
     from rgbd360_tpu_torch.io.calib import Calibration
 
     bench = harness.load_json(ROOT / "BENCHMARK.json")
-    w = next(w for w in bench["workloads"] if w["name"] == CELL)
+    w = next(w for w in bench["workloads"] if w["name"] == cell)
     cfg_file = harness.load_json(harness.HERE / "configs" / f"{w['config']}.json")
     traffic = harness.load_json(harness.HERE / "traffic" / f"{w['traffic']}.json")
     cfg = harness.framework_config(cfg_file)
@@ -245,7 +261,7 @@ def cost_ms(tracker, builder, traf, laps: int, on: bool) -> float:
     return 1e3 * (time.perf_counter() - t0) / (traf.n * laps)
 
 
-def traced_lap(bench, cfg, traffic, builder, tracker, traf, seed: int) -> dict:
+def traced_lap(bench, cfg, traffic, builder, tracker, traf, seed: int, cell: str) -> dict:
     """Lap 1 of a fresh tracker with the tracer on inside a profiler
     session, with the benchmark's check installed as in a traced run:
     the six readings, the benchmark's per-layer readings, the clock gaps."""
@@ -277,10 +293,12 @@ def traced_lap(bench, cfg, traffic, builder, tracker, traf, seed: int) -> dict:
              if ev.device_type() != DeviceType.CUDA and ev.name() in reduce.HOST_WAITS]
     run = harness.Run(setup_s=0.0, frames=n, window_s=tr.window_s(), latencies_s=[],
                       trace=tr, config=cfg)
-    old = {m["name"]: harness._reader(m["name"])(run) for m in bench["per_layer"]}
+    old = {m["name"]: harness._reader(m["name"])(run) for m in bench["per_layer"]
+           if cell in m.get("workloads", [cell])}
     counts = {k: v for k, v in slam.timer.counts.items() if k.startswith("kf_pyramid.")}
     counts.update(gn_graph_counts(slam.timer.counts, before))
     return {"new": read_all(spans, waits), "track.replay_share": track_replay_share(spans),
+            "graph_solves": graph_solves(spans),
             "per_layer": old, "clock": clock_gaps(spans, tr.raw_ranges), "spans": len(spans),
             "counts": counts, "idle_gaps": tr.idle_gaps(16),
             "memory_peak_bytes": torch.cuda.max_memory_allocated()}
@@ -290,6 +308,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--laps", type=int, default=2, help="laps of each cost run")
+    p.add_argument("--cell", default="kfslam.loop24", help="the benchmark cell whose "
+                   "configuration and traffic to run")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
@@ -300,7 +320,7 @@ def main(argv=None) -> int:
     from perfbench import scene
     from rgbd360_tpu_torch.registration import dense as D
 
-    bench, cfg, traffic, builder, tracker = _setup()
+    bench, cfg, traffic, builder, tracker = _setup(args.cell)
     warm = scene.LoopTraffic(traffic, args.seeds[0], "cuda")
     slam = tracker(builder)
     for i in range(warm.n):
@@ -320,7 +340,7 @@ def main(argv=None) -> int:
         rows.append({"seed": seed, "frame_ms_off": ms["off"], "frame_ms_on": ms["on"]})
     for row in rows:
         row.update(traced_lap(bench, cfg, traffic, builder, tracker, trafs[row["seed"]],
-                              row["seed"]))
+                              row["seed"], args.cell))
         print(json.dumps(row), flush=True)
     graphs["captured_after_warmup"] = D.GN_COUNTS["capture"] - graphs["captured_in_warmup"]
     graphs["keys"] = len(D._GRAPHS)

@@ -103,6 +103,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     #  lo, hi, vec_gray, vec_depth, stream)
     lib.rgbd360_level_down.argtypes = [p, p, i, p, p, i, i, i, i, f, f, i, i, p]
     lib.rgbd360_level_down.restype = i
+    # (tp, visible, n_terms, then a, w, mask, r of two terms, batch, n,
+    #  chunks, partial, hess, grad, sq, count, stream)
+    lib.rgbd360_normal_equations.argtypes = [p, p, i, *[p] * 8, i, i, i, p, p, p, p, p, p]
+    lib.rgbd360_normal_equations.restype = i
     # (result, stream)
     lib.rgbd360_check_fast_reciprocal.argtypes = [p, p]
     lib.rgbd360_check_fast_reciprocal.restype = i

@@ -11,12 +11,19 @@ versions.
   `fused_pyr_down_circular` (circular rows, what the pyramid's pyrDown
   computes) and `fused_level_down` (a whole level transition: the gray's
   circular pyrDown and the depth's 2x2 valid mean in one launch).
+* `normal_equations` replaces no TPU kernel (the JAX package leaves the
+  reduction to XLA): a dense GN sweep's normal equations, J^T J, J^T r, the
+  squared residuals and the counts, from the Jacobian's prefix, weight,
+  mask and residual of each term; CUDA source `csrc/normal_equations.cu`,
+  two launches a call (per-chunk partials, then their sum).
 
 The sources are built by `ops/_build.py` on first use.  A wrapper launches
 its kernel for a CUDA tensor and raises if it cannot; it uses the plain
 PyTorch version only for a tensor on the CPU.  `<kernel>.launches` counts
 kernel launches: K1's count is on `fused_gradients` (one for a group), K2's
-on `fused_pyr_down` (every wrapper).
+on `fused_pyr_down` (every wrapper), and `normal_equations`'s on itself (two
+a call; a call inside a CUDA graph capture records its two, which every
+replay of the graph launches again uncounted).
 
 What surrounds the kernels is decided here, in Python the CPU tests reach:
 `gradient_plan` and `level_down_plan` give each launch its tiles, its grid
@@ -26,8 +33,9 @@ for a width or a pointer that does not allow them).
 
 from __future__ import annotations
 
+import math
 import struct
-from collections.abc import Sequence
+from collections.abc import Mapping, Sequence
 
 import torch
 
@@ -390,3 +398,112 @@ def fused_level_down(
 
 
 fused_pyr_down.launches = 0
+
+
+# ------------------------------------------------------ normal equations
+
+
+def normal_equations_plain(
+    tp: torch.Tensor, terms: Mapping[str, tuple], visible: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Plain PyTorch version of `normal_equations` (the dense sweep's own
+    code before the kernel): for each term `prefix -> (a, w, mask, r)`,
+    J = where(mask, [a | tp x a] * w, 0) and H += J^T J, g += J^T r by
+    matrix products over the pixel axis."""
+    batch = tp.shape[:-2]
+    hess = torch.zeros(batch + (6, 6), device=tp.device)
+    grad = torch.zeros(batch + (6,), device=tp.device)
+    stats = {}
+    for prefix, (a, w, mask, r) in terms.items():
+        # a @ [I | -skew(tp)] = [a | tp x a]
+        jac = torch.cat([a, torch.linalg.cross(tp, a, dim=-1)], dim=-1) * w[..., None]
+        jac = torch.where(mask[..., None], jac, 0.0)
+        hess = hess + jac.mT @ jac
+        grad = grad + (jac.mT @ r[..., None])[..., 0]
+        stats[prefix + "_sq"] = torch.sum(r * r, dim=-1)
+        stats[prefix + "_n"] = torch.sum(mask, dim=-1)
+    stats["visible"] = torch.sum(visible, dim=-1)
+    return hess, grad, stats
+
+
+# The chunk plan of the kernel (twin of the constants in
+# csrc/normal_equations.cu): a first-pass block sums NEQ_CHUNK pixels of one
+# element into a partial of NEQ_WORDS words.
+NEQ_CHUNK = 2048
+NEQ_WORDS = 32
+
+
+def _check_neq(tp, terms, visible) -> None:
+    """The kernel's checks (on every device, so the CPU tests see them)."""
+    name = "normal_equations"
+    if tp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {tp.device}")
+    if tp.ndim < 2 or tp.shape[-1] != 3:
+        raise ValueError(f"{name}: tp is (..., N, 3), got {tuple(tp.shape)}")
+    if not 1 <= len(terms) <= 2:
+        raise ValueError(f"{name}: takes 1 or 2 terms, got {len(terms)}")
+    pix = tp.shape[:-1]
+    want = [("tp", tp, torch.float32, tp.shape), ("visible", visible, torch.bool, pix)]
+    for prefix, (a, w, mask, r) in terms.items():
+        want += [(f"{prefix} a", a, torch.float32, tp.shape),
+                 (f"{prefix} w", w, torch.float32, pix),
+                 (f"{prefix} mask", mask, torch.bool, pix),
+                 (f"{prefix} r", r, torch.float32, pix)]
+    for what, x, dtype, shape in want:
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: {what} needs {dtype}, got {x.dtype}")
+        if x.shape != shape:
+            raise ValueError(f"{name}: {what} needs shape {tuple(shape)}, got {tuple(x.shape)}")
+        if x.device != tp.device or not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous and on {tp.device}")
+
+
+def _launch_normal_equations(tp, terms, visible):
+    batch, n = tp.shape[:-2], tp.shape[-2]
+    b = math.prod(batch)
+    if b > 65535 or n >= 2**31:
+        raise ValueError(f"normal_equations: batch {b} x {n} pixels exceeds the launch limits")
+    dev = tp.device
+    hess = torch.empty(batch + (6, 6), device=dev)
+    grad = torch.empty(batch + (6,), device=dev)
+    sq = torch.empty((len(terms),) + batch, device=dev)
+    count = torch.empty((len(terms) + 1,) + batch, dtype=torch.int64, device=dev)
+    stats = {}
+    for i, prefix in enumerate(terms):
+        stats[prefix + "_sq"], stats[prefix + "_n"] = sq[i], count[i]
+    stats["visible"] = count[-1]
+    if b == 0:
+        return hess, grad, stats
+    chunks = max(1, -(-n // NEQ_CHUNK))
+    partial = torch.empty((b * chunks, NEQ_WORDS), device=dev)
+    ptrs = [x.data_ptr() for term in terms.values() for x in term]
+    ptrs += [None] * (8 - len(ptrs))
+    lib = _build.load()
+    code = _on_device(dev, lambda stream: lib.rgbd360_normal_equations(
+        tp.data_ptr(), visible.data_ptr(), len(terms), *ptrs, b, n, chunks,
+        partial.data_ptr(), hess.data_ptr(), grad.data_ptr(), sq.data_ptr(),
+        count.data_ptr(), stream))
+    _build.check(lib, code, "normal_equations")
+    normal_equations.launches += 2
+    return hess, grad, stats
+
+
+def normal_equations(
+    tp: torch.Tensor, terms: Mapping[str, tuple], visible: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """(H (..., 6, 6), g (..., 6), stats) of one dense GN sweep over the
+    (..., N) pixels of each element of a batch: H = sum J^T J and
+    g = sum J^T r over the terms `prefix -> (a, w, mask, r)` (photo,
+    depth), with J = [a | tp x a] * w where `mask`, else 0; stats holds
+    `<prefix>_sq` (sum r^2, float32) and `<prefix>_n` (the mask's count,
+    int64) of each term and `visible` (its count).  `tp` and each `a` are
+    (..., N, 3) float32, `w` and `r` (..., N) float32, the masks (..., N)
+    bool, all contiguous on one device.  On the card the kernel (two
+    launches, no sync); on the CPU the plain version."""
+    _check_neq(tp, terms, visible)
+    if tp.device.type == "cpu":
+        return normal_equations_plain(tp, terms, visible)
+    return _launch_normal_equations(tp, terms, visible)
+
+
+normal_equations.launches = 0

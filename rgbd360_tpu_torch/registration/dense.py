@@ -19,7 +19,8 @@ Each GN step evaluates the loop condition on the device and reads it with
 one host sync, which gives exactly the reference's `lax.while_loop`
 semantics (early exit, accept/reject, the iteration counter).  On a CUDA
 card each step replays a CUDA graph of its sweep and update (see "CUDA
-graphs" below).
+graphs" below), and the sweep's normal equations are one hand-written
+reduction (`ops/hopper_kernels.normal_equations`).
 
 Batches.  The reference vmaps the aligner (the batch pipeline, one source
 against several keyframes, a batch of pose hypotheses, the rig's sensors);
@@ -43,7 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from rgbd360_tpu_torch.config import DenseRegConfig
-from rgbd360_tpu_torch.ops import camera, pyramid as pyr_ops, se3
+from rgbd360_tpu_torch.ops import camera, hopper_kernels as HK, pyramid as pyr_ops, se3
 from rgbd360_tpu_torch.utils import metrics
 
 PHOTO_CONSISTENCY = 0
@@ -470,33 +471,15 @@ def _hess_grad_packed(
         jproj = _proj_jacobian_pinhole(tp, intr)
     batch = pose.shape[:-2]
 
-    def flat(x):  # (*batch, pixels...) -> (*batch, N)
-        return x.reshape(*batch, -1)
-
-    # a @ [I | -skew(tp)] = [a | tp x a]
-    def chain_row(a):
-        return torch.cat([a, torch.linalg.cross(tp, a, dim=-1)], dim=-1)
-
-    hess = torch.zeros(batch + (6, 6), device=tp.device)
-    grad = torch.zeros(batch + (6,), device=tp.device)
-    stats = {}
-
-    def accumulate(prefix, a):
-        nonlocal hess, grad
-        jac = chain_row(a) * t[prefix + "_w"][..., None]
-        jac = torch.where(t[prefix + "_mask"][..., None], jac, 0.0)
-        jf = jac.reshape(*batch, -1, 6)
-        rf = flat(t[prefix + "_res"])
-        hess = hess + jf.mT @ jf
-        grad = grad + (jf.mT @ rf[..., None])[..., 0]
-        stats[prefix + "_sq"] = torch.sum(rf * rf, dim=-1)
-        stats[prefix + "_n"] = torch.sum(flat(t[prefix + "_mask"]), dim=-1)
+    def flat(x, *last):  # (*batch, pixels..., *last) -> (*batch, N, *last)
+        return x.reshape(*batch, -1, *last).contiguous()
 
     def image_term(gx, gy):
         return gx[..., None] * jproj[..., 0, :] + gy[..., None] * jproj[..., 1, :]
 
+    a_of = {}  # each term's Jacobian prefix a: J = [a | tp x a] * w
     if "photo_res" in t:
-        accumulate("photo", image_term(t["photo_gx"], t["photo_gy"]))
+        a_of["photo"] = image_term(t["photo_gx"], t["photo_gy"])
     if "depth_res" in t:
         a = image_term(t["depth_gx"], t["depth_gy"])
         if intr is None:
@@ -505,9 +488,10 @@ def _hess_grad_packed(
         else:
             # the pinhole depth measure is z: -dz/dp = -e_z (reference `:991`)
             a = torch.cat([a[..., :2], a[..., 2:] - 1.0], dim=-1)
-        accumulate("depth", a)
-
-    stats["visible"] = torch.sum(flat(t["visible"]), dim=-1)
+        a_of["depth"] = a
+    terms = {k: (flat(a, 3), flat(t[k + "_w"]), flat(t[k + "_mask"]), flat(t[k + "_res"]))
+             for k, a in a_of.items()}
+    hess, grad, stats = HK.normal_equations(flat(tp, 3), terms, flat(t["visible"]))
     # mean weighted residual sqrt(sum(w r)^2 / n): H, g and error from ONE sweep
     err2 = stats.get("photo_sq", 0.0) + stats.get("depth_sq", 0.0)
     n = stats.get("photo_n", 0) + stats.get("depth_n", 0)
@@ -558,11 +542,12 @@ def _gn_level(
 
 
 # Since import: GN loop trips (`sweep`), the trips replayed from a CUDA
-# graph (`replay`), the graphs captured (`capture`) and the `coarse_align`
-# calls replayed (`coarse`).  A solve's `sweeps` and `replays` are what it
-# adds (the host runs one solve at a time); a tracker adds each to its
-# timer's `gn_graph.<name>` count.
-GN_COUNTS = {"sweep": 0, "replay": 0, "capture": 0, "coarse": 0}
+# graph (`replay`), the trips whose sweep went through the normal-equations
+# kernel (`normal_eq`), the graphs captured (`capture`) and the
+# `coarse_align` calls replayed (`coarse`).  A solve's `sweeps` and
+# `replays` are what it adds (the host runs one solve at a time); a tracker
+# adds each to its timer's `gn_graph.<name>` count.
+GN_COUNTS = {"sweep": 0, "replay": 0, "normal_eq": 0, "capture": 0, "coarse": 0}
 
 
 def _gn_start(pose, ill, st_best, cfg, max_iters) -> dict:
@@ -634,7 +619,9 @@ def _gn_loop(sweep, pose, ill, cfg, max_iters, st_best):
     s = _gn_start(pose, ill, st_best, cfg, max_iters)
     while bool(s["run"].any()):
         GN_COUNTS["sweep"] += 1
+        launches = HK.normal_equations.launches
         s = _gn_trip(s, *sweep(s["cand"]), cfg, max_iters)
+        GN_COUNTS["normal_eq"] += HK.normal_equations.launches > launches
     return _gn_out(s)
 
 
@@ -746,14 +733,19 @@ def _gn_graph_loop(inputs: dict, pose, ill, cfg, method, occlusion, max_iters):
             _load(state, _gn_trip(state, *sweep, cfg, max_iters))
             torch.any(state["run"], out=flag)
 
-        entry = _GRAPHS[key] = (inp, state, flag, _replayer(start, dev), _replayer(trip, dev))
+        # whether the captured trip's sweep launched the kernel (a trip
+        # off the card runs the plain version)
+        launches = HK.normal_equations.launches
+        entry = (inp, state, flag, _replayer(start, dev), _replayer(trip, dev))
+        entry = _GRAPHS[key] = (*entry, HK.normal_equations.launches > launches)
     else:
         _load(entry[0], dict(inputs, pose=pose, ill=ill))
-    _, state, flag, start, trip = entry
+    _, state, flag, start, trip, kernel = entry
     start()
     while bool(flag):
         GN_COUNTS["sweep"] += 1
         GN_COUNTS["replay"] += replayed
+        GN_COUNTS["normal_eq"] += kernel
         trip()
     return tuple(_static(x) for x in _gn_out(state))
 

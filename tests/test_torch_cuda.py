@@ -8,6 +8,8 @@ This file imports torch only, so it also runs on a machine without jax:
 `torch.cuda.is_available()` is False every test skips with its reason.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -440,3 +442,169 @@ def test_gn_graph_captures_inside_a_profiler_session(cuda, monkeypatch):
         want = solve()
     for k, v in _result_tensors(want).items():
         assert torch.equal(getattr(got, k), v), k
+
+
+# ------------------------------------------- the dense sweep's normal equations
+
+
+def _neq_inputs(b, n, prefixes=("photo", "depth"), seed=0):
+    """The kernel's operands at a sweep's shapes, on the card: points at 1-5
+    m, prefixes of mixed magnitudes, weights in (0, 1], residuals 0 where a
+    term's mask is off, 60% of the pixels kept by each mask."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    tp = torch.randn((b, n, 3), generator=gen, device="cuda") * (1 + 4 * u(b, n, 1))
+    vis = u(b, n) < 0.9
+    terms = {}
+    for p in prefixes:
+        m = (u(b, n) < 0.6) & vis
+        a = torch.randn((b, n, 3), generator=gen, device="cuda") * 10.0 ** (5 * u(b, n, 1) - 3)
+        w = torch.where(m, 0.05 + 0.95 * u(b, n), 0.0)
+        r = torch.where(m, 0.1 * torch.randn((b, n), generator=gen, device="cuda"), 0.0)
+        terms[p] = (a, w, m, r)
+    return tp, terms, vis
+
+
+def _neq_leaves(args):
+    tp, terms, vis = args
+    return [tp, *(x for term in terms.values() for x in term), vis]
+
+
+def _neq_f64(tp, terms, vis):
+    """The plain version's sums in float64: the exact sums to float32
+    rounding of the operands."""
+    return HK.normal_equations_plain(
+        tp.double(), {k: (a.double(), w.double(), m, r.double()) for k, (a, w, m, r) in
+                      terms.items()}, vis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 6, 16])
+@pytest.mark.parametrize("n", [614400, 153600, 16384, 2400, 1, 100003])
+def test_normal_equations_kernel_matches_plain(cuda, n, b):
+    """The kernel against its plain version at the main path's pixel counts
+    (levels 0, 1 and 4 of the 320x1920 sphere, the salient subset, a single
+    pixel, a prime) and batches (tracking, verification, connection, the
+    coarse yaw grid).  The plain version is summed in float64 here: in
+    float32 it is cuBLAS's GEMM, which walks the pixel axis serially in one
+    thread per output, and at 614,400 pixels its own rounding (~1e-5) would
+    swamp what is measured.  Tolerances: H within 1e-6 relative Frobenius
+    and each squared sum within 1e-6 relative (sums of positive terms, where
+    a float32 tree over <= 2^20 addends stays within ~20 ulp); g within
+    1e-6 of the norm of |J|^T |r| (the scale of its signed addends: g itself
+    nears 0 as a solve converges, and cancellation is not the kernel's
+    error); the counts exact."""
+    tp, terms, vis = _neq_inputs(b, n)
+    before = HK.normal_equations.launches
+    h, g, st = HK.normal_equations(tp, terms, vis)
+    torch.cuda.synchronize()
+    assert HK.normal_equations.launches == before + 2
+    h0, g0, st0 = _neq_f64(tp, terms, vis)
+    assert h.shape == (b, 6, 6) and g.shape == (b, 6) and list(st) == list(st0)
+    assert torch.equal(h, h.mT)
+    gap = torch.linalg.norm((h.double() - h0).flatten(1), dim=1)
+    assert bool((gap <= 1e-6 * torch.linalg.norm(h0.flatten(1), dim=1)).all())
+    scale = torch.zeros((b, 6), dtype=torch.float64, device="cuda")
+    for a, w, m, r in terms.values():
+        jac = torch.cat([a, torch.linalg.cross(tp, a, dim=-1)], -1).double() * w[..., None]
+        jac = torch.where(m[..., None], jac, 0.0)
+        scale += (jac.abs().mT @ r.double().abs()[..., None])[..., 0]
+    g_gap = torch.linalg.norm(g.double() - g0, dim=1)
+    assert bool((g_gap <= 1e-6 * torch.linalg.norm(scale, dim=1)).all())
+    for k, v in st0.items():
+        if k.endswith("_sq"):
+            assert st[k].dtype == torch.float32
+            assert bool(((st[k].double() - v).abs() <= 1e-6 * v).all()), k
+        else:
+            assert st[k].dtype == torch.int64 and torch.equal(st[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefixes", [("photo",), ("depth",)], ids=["photo", "depth"])
+def test_normal_equations_one_term(cuda, prefixes):
+    tp, terms, vis = _neq_inputs(3, 153600, prefixes, seed=1)
+    h, g, st = HK.normal_equations(tp, terms, vis)
+    h0, g0, st0 = _neq_f64(tp, terms, vis)
+    assert list(st) == list(st0) == [f"{prefixes[0]}_sq", f"{prefixes[0]}_n", "visible"]
+    assert float(torch.linalg.norm(h.double() - h0) / torch.linalg.norm(h0)) <= 1e-6
+    assert torch.equal(st[f"{prefixes[0]}_n"], st0[f"{prefixes[0]}_n"])
+    assert torch.equal(st["visible"], st0["visible"])
+
+
+@pytest.mark.cuda
+def test_normal_equations_masked_non_finite_pixels_reach_no_sum(cuda):
+    """Pixels that no term's mask keeps, with non-finite Jacobian prefixes
+    and points: the kernel selects their J rows to 0, so the sums equal
+    those with the pixels' values zeroed, bit for bit."""
+    tp, terms, vis = _neq_inputs(3, 153600, seed=5)
+    off = torch.zeros_like(vis)
+    off[0, 7] = off[1, 100000] = off[2, 153599] = True
+    terms = {k: (a, torch.where(off, 0.0, w), m & ~off, torch.where(off, 0.0, r))
+             for k, (a, w, m, r) in terms.items()}
+
+    def spoil(x, value):
+        return torch.where(off[..., None], value, x)
+
+    want = HK.normal_equations(spoil(tp, 0.0), {k: (spoil(a, 0.0), *rest) for k, (a, *rest)
+                                                in terms.items()}, vis)
+    got = HK.normal_equations(spoil(tp, math.inf), {
+        k: (spoil(a, math.nan if k == "photo" else -math.inf), *rest)
+        for k, (a, *rest) in terms.items()}, vis)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_normal_equations_is_deterministic(cuda):
+    """Two calls on the same operands are bit-identical (no atomics, a
+    partition by the shapes alone)."""
+    args = _neq_inputs(3, 614400, seed=2)
+    first = HK.normal_equations(*args)
+    second = HK.normal_equations(*args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert all(torch.equal(first[2][k], second[2][k]) for k in first[2])
+
+
+@pytest.mark.cuda
+def test_normal_equations_replays_from_a_cuda_graph(cuda):
+    """A call captured in a CUDA graph, replayed on new operands copied into
+    its static tensors, equals the eager call on those operands bit for
+    bit."""
+    static = _neq_inputs(3, 153600, seed=3)
+    fresh = _neq_inputs(3, 153600, seed=4)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        HK.normal_equations(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = HK.normal_equations(*static)
+    for x, y in zip(_neq_leaves(static), _neq_leaves(fresh)):
+        x.copy_(y)
+    graph.replay()
+    want = HK.normal_equations(*fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert all(torch.equal(out[2][k], want[2][k]) for k in want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["single", "verify3"])
+def test_every_dense_trip_sweeps_through_the_kernel(cuda, name):
+    """A whole solve on the card: every GN trip's sweep went through the
+    kernel (`GN_COUNTS["normal_eq"]` == `sweep`), from its CUDA graph."""
+    from rgbd360_tpu_torch.registration import dense as D
+
+    D._GRAPHS.clear()
+    solve = _graph_case(name, 5)
+    before = dict(D.GN_COUNTS)
+    res = solve()
+    torch.cuda.synchronize()
+    trips = D.GN_COUNTS["sweep"] - before["sweep"]
+    assert trips == res.sweeps > 0
+    assert D.GN_COUNTS["normal_eq"] - before["normal_eq"] == trips
+    assert D.GN_COUNTS["replay"] - before["replay"] == trips

@@ -97,14 +97,18 @@ def test_track_replay_share():
 
 def test_gn_graph_counts_over_the_lap():
     """The lap's `gn_graph.*` counts (the timer's less those before it)
-    and the share of trips replayed; other counters are left out."""
-    before = {"gn_graph.sweep": 40, "gn_graph.replay": 10, "gn_graph.capture": 12}
-    counts = {"gn_graph.sweep": 100, "gn_graph.replay": 70, "gn_graph.capture": 12,
-              "gn_graph.coarse": 3, "kf_pyramid.hit": 5, "align": 9}
+    and the shares of trips replayed and swept by the normal-equations
+    kernel; other counters are left out."""
+    before = {"gn_graph.sweep": 40, "gn_graph.replay": 10, "gn_graph.normal_eq": 10,
+              "gn_graph.capture": 12}
+    counts = {"gn_graph.sweep": 100, "gn_graph.replay": 70, "gn_graph.normal_eq": 40,
+              "gn_graph.capture": 12, "gn_graph.coarse": 3, "kf_pyramid.hit": 5, "align": 9}
     assert lap.gn_graph_counts(counts, before) == {
-        "gn_graph.sweep": 60, "gn_graph.replay": 60, "gn_graph.capture": 0,
-        "gn_graph.coarse": 3, "gn_graph.replay_share": 1.0}
-    assert lap.gn_graph_counts({"kf_pyramid.hit": 1}) == {"gn_graph.replay_share": None}
+        "gn_graph.sweep": 60, "gn_graph.replay": 60, "gn_graph.normal_eq": 30,
+        "gn_graph.capture": 0, "gn_graph.coarse": 3, "gn_graph.replay_share": 1.0,
+        "gn_graph.normal_eq_share": 0.5}
+    assert lap.gn_graph_counts({"kf_pyramid.hit": 1}) == {
+        "gn_graph.replay_share": None, "gn_graph.normal_eq_share": None}
 
 
 def test_graph_solves():
@@ -124,4 +128,5 @@ def test_graph_counts_are_read_beside_the_gn_graph_counts():
               "graph.lm_reject": 7, "optimize": 2}
     got = lap.gn_graph_counts(counts, {"graph.lm_iter": 2, "gn_graph.sweep": 2})
     assert got == {"gn_graph.sweep": 8, "gn_graph.replay": 8, "graph.lm_iter": 10,
-                   "graph.lm_reject": 7, "gn_graph.replay_share": 1.0}
+                   "graph.lm_reject": 7, "gn_graph.replay_share": 1.0,
+                   "gn_graph.normal_eq_share": 0.0}

@@ -1,5 +1,6 @@
 """Time the port's CUDA kernels (K1 `fused_gradients`, K2 `fused_pyr_down`
-/ `fused_level_down`) and the pyramid stage on one CUDA device.
+/ `fused_level_down`, the dense sweep's `normal_equations` beside the GEMM
+path it replaced) and the pyramid stage on one CUDA device.
 
     python3 tools/torch_kernel_bench.py [--root DIR] [--label NAME] [--out-dir DIR]
 
@@ -119,6 +120,40 @@ def bench_group(S, HK, rng) -> list[dict]:
     return rows
 
 
+# (label, batch, pixels) of the dense sweep's normal equations on the main
+# path: level 0 (the tracked solve's polish; the verification's, B=3),
+# level 1, the salient subset of a verification and the coarse yaw grid
+NEQ_SHAPES = [("level 0", 1, 614400), ("level 0", 3, 614400), ("level 1", 1, 153600),
+              ("salient", 3, 16384), ("coarse", 16, 2400)]
+
+
+def bench_normal_equations(S, HK) -> list[dict]:
+    """The sweep's normal equations: the kernel against the code it
+    replaced (the plain version: `cat`, `cross`, multiply, `where`, the
+    float32 GEMM and GEMV, the sums), in turns (GEMM, kernel, kernel,
+    GEMM), at the main path's shapes, and the library's `J^T J` GEMM
+    alone on one term's (B, N, 6) Jacobian as the yardstick.  Bytes: per
+    pixel and element 12 of tp, 1 of the visible mask and 21 a term (12 a,
+    4 w, 4 r, 1 mask); the operands are the smoke's (`chip_smoke._neq_inputs`).
+    Trees without the kernel skip it."""
+    if not hasattr(HK, "normal_equations"):
+        print("normal equations: no kernel in this tree")
+        return []
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for seed, (label, b, n) in enumerate(NEQ_SHAPES):
+        args = S._neq_inputs(b, n, seed)
+        nbytes = b * n * S.NEQ_BYTES_PER_PIXEL
+        fns = {"GEMM path (plain)": lambda: HK.normal_equations_plain(*args),
+               "kernel": lambda: HK.normal_equations(*args)}
+        for name in ("GEMM path (plain)", "kernel", "kernel", "GEMM path (plain)"):
+            rows.append(_row(S, f"normal equations {label}: {name}", (b, n), fns[name], nbytes))
+        jac = torch.randn((b, n, 6), generator=gen, device="cuda")
+        rows.append(_row(S, f"normal equations {label}: library J^T J GEMM alone", (b, n),
+                         lambda: jac.mT @ jac, b * n * 24))
+    return rows
+
+
 def bench_pyramid(S) -> dict:
     """The pyramid stage and `build_with_pyramid` of one synthetic frame."""
     from rgbd360_tpu_torch import synthetic
@@ -174,6 +209,7 @@ def main(argv=None) -> int:
     out = dict(card=smi, label=args.label, pyramid=bench_pyramid(S))
     out["kernels"] = bench_kernels(S, HK, pyr_ops, rng)
     out["groups"] = bench_group(S, HK, rng)
+    out["normal_equations"] = bench_normal_equations(S, HK)
     dest = Path(args.out_dir)
     dest.mkdir(parents=True, exist_ok=True)
     (dest / f"kernel_bench_{args.label}.json").write_text(json.dumps(out, indent=1))

@@ -28,8 +28,9 @@ The readers take the lap's spans (`utils.trace.Span`) and the start times
 (ns, the profiler's host clock) of its host-wait calls; each gives a number
 per traced frame, or None where the program recorded no such span.  Beside
 them: the tracker's `kf_pyramid.*` counts over both laps, its `gn_graph.*`
-counts over the traced lap with the replay share of every dense solve's GN
-trips, and the tracking solves' own share (`track.replay_share`); the graph
+counts over the traced lap with the shares of every dense solve's GN trips
+replayed and swept by the normal-equations kernel, and the tracking solves'
+own replay share (`track.replay_share`); the graph
 solves' `optimize` spans (`graph_solves`: their count, LM iterations and
 rejected steps a solve, keyframes, precision) and the timer's
 `graph.lm_iter` / `graph.lm_reject` counts over the traced lap.
@@ -188,13 +189,17 @@ def track_replay_share(spans):
 
 def gn_graph_counts(counts: dict, before: dict | None = None) -> dict:
     """The timer's `gn_graph.*` and `graph.*` counts less those in
-    `before`, and `gn_graph.replay_share`: every dense solve's GN trips
-    replayed from a CUDA graph over all their trips (None without trips)."""
+    `before`, `gn_graph.replay_share`: every dense solve's GN trips
+    replayed from a CUDA graph over all their trips, and
+    `gn_graph.normal_eq_share`: those whose sweep went through the
+    normal-equations kernel over all (each None without trips)."""
     before = before or {}
     got = {k: v - before.get(k, 0) for k, v in counts.items()
            if k.startswith(("gn_graph.", "graph."))}
     sweeps = got.get("gn_graph.sweep", 0)
-    got["gn_graph.replay_share"] = got.get("gn_graph.replay", 0) / sweeps if sweeps else None
+    for name in ("replay", "normal_eq"):
+        got[f"gn_graph.{name}_share"] = (
+            got.get(f"gn_graph.{name}", 0) / sweeps if sweeps else None)
     return got
 
 

@@ -262,19 +262,6 @@ class LoopCloser:
         cands = se3.yaw_grid(16) @ np.asarray(seed_pose, np.float64)[None]
         return torch.as_tensor(cands, dtype=torch.float32, device=q_pyr.gray[0].device)
 
-    def rescue_coarse_dispatch(self, q_pyr, kf_pyr, seed_pose):
-        """The yaw-alias heading rescue's coarse sweep (16 yaw hypotheses
-        left-composed on the plane seed, one batched refinement)."""
-        return self._aligner.coarse_align(q_pyr, kf_pyr, self._yaw_candidates(q_pyr, seed_pose))
-
-    def rescue_align_dispatch(self, q_pyr, kf_pyr, refined, errs):
-        """The full verify from the best coarse rescue hypothesis (inputs
-        already fetched)."""
-        best = int(np.argmin(np.asarray(errs)))
-        return self._aligner.align(
-            q_pyr, kf_pyr, np.asarray(refined)[best], method=D.PHOTO_DEPTH
-        )
-
     def rescue_fused_dispatch(self, q_pyr, kf_pyr, seed_pose):
         """The heading rescue without a fetch in the middle: the 16-yaw
         coarse sweep, the device-side argmin over the post-refinement
@@ -299,6 +286,36 @@ class LoopCloser:
             sso=float(res.sso),
             depth_residual=float(res.av_depth_residual),
         )
+
+    def gate_and_rescue(self, verified, q_pyr, cand, cand_pose, cand_pyrs, query_kf: int,
+                        ref_photo: float | None):
+        """Gate the FETCHED verify batch `verified` of candidates `cand`
+        (None: no candidates); every candidate that fails gets the heading
+        rescue (`rescue_fused_dispatch`, from its plane seed in `cand_pose`
+        against its pyramid in `cand_pyrs`), all of them yielded as ONE
+        tuple to fetch, and the fetched results are gated in turn.  Returns
+        (the accepted closures, the first pass's in candidate order and then
+        the rescues' in failure order; the number of rescues dispatched).
+        A generator: a tracker's keyframe event yields from it, `search`
+        runs it at once."""
+        if verified is None:
+            return [], 0
+        out: list[LoopClosure] = []
+        failures = []
+        for i, kf in enumerate(cand):
+            res = D._result_item(verified, i)
+            if self.gates_ok(res, ref_photo):
+                out.append(self.accept(res, kf, query_kf))
+            else:
+                failures.append((i, kf))
+        if failures:
+            rescued = yield tuple(
+                self.rescue_fused_dispatch(q_pyr, cand_pyrs[i], cand_pose[kf]) for i, kf in failures
+            )
+            for (i, kf), res in zip(failures, rescued):
+                if self.gates_ok(res, ref_photo):
+                    out.append(self.accept(res, kf, query_kf))
+        return out, len(failures)
 
     def search(
         self,
@@ -339,21 +356,15 @@ class LoopCloser:
         if not cand:
             return []
 
-        out: list[LoopClosure] = []
         if q_pyr is None:
             q_pyr = self._pyr(query_gray, query_depth)
         res_b, cand_pyrs = self.verify_dispatch(map360, q_pyr, cand, cand_pose, pyr_cache)
-        res_b = fetch(res_b)
-        for i, k in enumerate(cand):
-            kf_pyr = cand_pyrs[i]
-            res = D._result_item(res_b, i)
-            if not self.gates_ok(res, ref_photo):
-                # heading rescue: the plane seed may be yaw-aliased
-                refined, errs = fetch(
-                    self.rescue_coarse_dispatch(q_pyr, kf_pyr, cand_pose[int(k)])
-                )
-                res = fetch(self.rescue_align_dispatch(q_pyr, kf_pyr, refined, errs))
-                if not self.gates_ok(res, ref_photo):
-                    continue
-            out.append(self.accept(res, int(k), query_kf))
-        return out
+        step = self.gate_and_rescue(
+            fetch(res_b), q_pyr, cand, cand_pose, cand_pyrs, query_kf, ref_photo
+        )
+        try:  # a yield holds the rescues of the candidates that failed
+            step.send(fetch(next(step)))
+        except StopIteration as done:
+            out, _ = done.value
+        order = {int(k): n for n, k in enumerate(cand)}
+        return sorted(out, key=lambda c: order[c.kf_from])

@@ -279,7 +279,7 @@ class TrackerBase:
         each phase yields the tensors it needs FETCHED and receives the
         fetched (host) values as the yield's result, so the poller owns the
         copy to the host."""
-        head = _Event(*self._pending[0])
+        head = self._pending[0]
         saved = self._cur_counter
         self._cur_counter = head.counter
         timer = self.timer
@@ -323,28 +323,6 @@ class TrackerBase:
         or exporting; applies any still-deferred keyframe-event work."""
         with _gn_graph_counts(self.timer):
             self._drain_pending()
-
-    def _apply_partition(self, sso_f) -> list[int]:
-        """The periodic topological partition of a keyframe event, on the
-        SSO snapshot `sso_f` (on the host) the event fetched; returns the
-        live keyframes' areas.  Keyframes promoted after the snapshot was
-        taken may lie beyond it (a promotion at a full map grows the map
-        under the event): only the `min(n_kf, len(sso_f))` keyframes it
-        covers are partitioned, and every later keyframe keeps its current
-        area."""
-        n_kf = self._n_kf_host
-        n_cov = min(n_kf, sso_f.shape[0])
-        with self.timer.region("partition", n_kf=n_cov):
-            area, n_areas = partition_map(
-                self.map, self.config.map.sso_partition_threshold, sso=sso_f, n_kf=n_cov
-            )
-            if n_cov < n_kf:
-                later = self.map.area[n_cov:n_kf].cpu().numpy()
-                area[n_cov:n_kf] = later
-                n_areas = max(n_areas, int(later.max()) + 1)
-            self.map.area.copy_(torch.from_numpy(area))
-            self.map.n_areas.fill_(n_areas)
-        return [int(a) for a in area[:n_kf]]
 
     def make_state(self, raw) -> FrameState:
         """Per-frame tracking state: build + pyramid + segmentation
@@ -540,6 +518,207 @@ class FrameToFrameOdometry(TrackerBase):
         return info
 
 
+class MapTrackerBase(TrackerBase):
+    """The keyframe back-end both map trackers (`KeyframeSLAM`,
+    `pbmap_slam.PbMapGraphSLAM`) share: the map and its host mirrors,
+    adding keyframes and edges, posting a keyframe's event, and the steps
+    of that event that do not depend on the tracker (the loop-closure
+    verification's dispatch, and the graph update: the edge slate, the
+    solve, its application and the partition).  Each tracker's event
+    generator (`_kf_event_gen`) keeps what differs: the connections, the
+    scan's condition, pose and snapshots, and the photometric gate's
+    reference, and solves the graph with its own `_solve_graph`."""
+
+    def __init__(self, builder: FrameBuilder, config: FrameworkConfig | None = None):
+        super().__init__(builder, config)
+        self._clear()
+
+    def _clear(self) -> None:
+        """An empty map with its host mirrors, no pending event, no
+        trajectory."""
+        cfg = self.config
+        self.map = Map360.empty(
+            cfg.map, cfg.sphere.height, cfg.sphere.width, cfg.seg.max_planes,
+            cfg.seg.hull_dirs, self.device,
+        )
+        # host mirror of the optimized pose array: per-frame policy reads
+        # (keyframe pose, trajectory anchors) would otherwise cost a copy
+        # from the device EACH, and a wait on all queued work.  Invalidated
+        # by whatever changes the optimized poses (optimize, resume).
+        self._opt_poses_host: np.ndarray | None = None
+        # keyframe payloads do not change -> their pyramids are memoized
+        self._kf_pyr_cache: dict = {}
+        # host mirror of the graph's edge pairs, kept incrementally
+        self._edge_set: set[tuple[int, int]] = set()
+        # host mirrors of the live counts and the area ids: reading
+        # `int(map.n_kf)` waits for every queued launch
+        self._n_kf_host = 0
+        self._n_edges_host = 0
+        self._area_host: list[int] = []
+        self._pending.clear()
+        self._poll_counter = 0
+        self._cur_counter = [0]
+        self.kf_event_dispatches: list[int] = []
+        self.trajectory: list[np.ndarray] = []
+        self.n_loop_closures = 0
+        self.events: list[dict] = []
+
+    def _opt_pose(self, k: int) -> np.ndarray:
+        """Optimized pose of keyframe k from the host mirror (one bulk copy
+        per invalidation instead of one per read)."""
+        if self._opt_poses_host is None:
+            self._opt_poses_host = self.map.opt_poses.cpu().numpy()
+        return self._opt_poses_host[k]
+
+    def _add_keyframe(self, state: FrameState, pose: np.ndarray, area_id: int) -> int:
+        """Add `state` as keyframe k in topological area `area_id`, with its
+        host mirrors and its cached pyramid; returns k."""
+        k = self._n_kf_host
+        self._area_host.append(area_id)
+        self.map = self.map.add_keyframe(
+            pose, state.sphere.sphere_gray, state.sphere.sphere_depth, state.planes,
+            area_id=area_id, n_live=k,
+        )
+        self._nd()
+        self._n_kf_host = k + 1
+        # update the host pose mirror IN PLACE (the new KF's optimized pose
+        # IS its trajectory pose): invalidating would make the next
+        # `_opt_pose` read wait for every queued launch
+        if self._opt_poses_host is not None and k < len(self._opt_poses_host):
+            self._opt_poses_host[k] = np.asarray(pose)
+        else:
+            self._opt_poses_host = None
+        self._kf_pyr_cache[k] = state.pyramid
+        return k
+
+    def _add_edges(self, edges: list[tuple]) -> None:
+        """Add a batch of (i, j, rel, info, sso, is_loop) edges in ONE map
+        update (`Map360.add_edges`) and mirror the pairs host-side."""
+        if not edges:
+            return
+        ij = np.asarray([(int(i), int(j)) for i, j, *_ in edges], np.int32)
+        self.map = self.map.add_edges(
+            ij,
+            np.stack([np.asarray(e[2], np.float32) for e in edges]),
+            np.stack([np.asarray(e[3], np.float32) for e in edges]),
+            np.asarray([float(e[4]) for e in edges], np.float32),
+            np.asarray([bool(e[5]) for e in edges]),
+            n_live=self._n_edges_host,
+        )
+        self._nd()
+        self._n_edges_host += len(edges)
+        self._edge_set.update((int(i), int(j)) for i, j in ij)
+
+    def _post_keyframe(self, gen, k: int, ev: dict) -> bool:
+        """Queue keyframe k's event generator `gen`.  With
+        `kf.async_kf_events` (default) the event is DEFERRED: later frames
+        advance it via `_poll_pending`, so tracking does not wait for it,
+        and this returns False (optimized poses apply on a later frame).
+        Synchronous mode drains here and returns True when the event's
+        graph solve ran (the caller refreshes poses read from the map)."""
+        self._enqueue_event(gen, k)
+        if self.config.kf.async_kf_events:
+            self._poll_pending()
+            return False
+        self._drain_pending("sync")
+        return ev.get("optimized", False)
+
+    def _verify_closures(self, state: FrameState, scan_f):
+        """An event's phase-B loop-closure half: the candidates of the
+        fetched scan `scan_f` (None: no scan) and their batched dense
+        verification, dispatched.  The tracker's own (seam-masked) pyramid
+        is the query: the front end already built it.  Returns (candidates,
+        their plane seeds, the verify batch on the device or None, their
+        pyramids), what `LoopCloser.gate_and_rescue` takes."""
+        if scan_f is None:
+            return [], {}, None, None
+        with self.timer.region("loop_closure"):
+            cand, seeds = self.loop_closer.select_host(scan_f)
+            if not cand:
+                return cand, seeds, None, None
+            res, pyrs = self.loop_closer.verify_dispatch(
+                self.map, state.pyramid, cand, seeds, self._kf_pyr_cache, self.timer,
+            )
+            self._nd()
+        return cand, seeds, res, pyrs
+
+    def _solve_graph(self):
+        """The tracker's pose-graph solve over the map: (poses, chi2, LM
+        iterations) on the device."""
+        raise NotImplementedError
+
+    def _graph_update(self, k: int, ev: dict, edges: list[tuple], lcs: list):
+        """The last step of keyframe k's event, a generator: add its edge
+        slate (`edges`, then the accepted closures `lcs`) in ONE map update,
+        solve the graph when the slate has any edge and apply the optimized
+        poses once the solve has finished (phase D); the periodic
+        partition (reference `KFsphere_SLAM.cpp:710-717`, a host spectral
+        solve over the fetched SSO) shares D's wait point."""
+        slate = edges + [(c.kf_from, c.kf_to, c.rel, c.info, c.sso, True) for c in lcs]
+        self._add_edges(slate)
+        ev["loop_closures"] = ev.get("loop_closures", 0) + len(lcs)
+        self.n_loop_closures += len(lcs)
+        # the event's OWN keyframe index decides the partition cadence (the
+        # live count would drift when queued events complete late)
+        partition_due = (k + 1) % self.config.map.partition_every_n_kf == 0
+        sso_f = None
+        if slate:
+            n0 = self._n_kf_host  # keyframes the solve covers
+            with graph_solve_region(self.timer, n0, self.config.graph.dtype):
+                poses, chi2, _ = self._solve_graph()
+            self._nd()
+            # the map is updated in place: the SSO matrix this event's
+            # partition reads is the one of NOW, so it is cloned here (a
+            # keyframe promoted before the next phase writes its edge's
+            # entry into the map's)
+            self._event_phase = "D"
+            if partition_due:  # ONE combined fetch
+                chi2_f, sso_f = yield (chi2, self.map.sso.clone())
+            else:
+                chi2_f = (yield (chi2,))[0]
+            # apply only the first n0 poses: a keyframe promoted while the
+            # solve was pending occupies a LATER slot, whose value in
+            # `poses` is the pre-promotion padding
+            if self._n_kf_host > n0:
+                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:].to(poses.dtype)])
+                self._nd()
+            self.map = self.map.with_optimized(poses)
+            self._opt_poses_host = None
+            ev["chi2"] = float(chi2_f)
+            ev["optimized"] = True
+        elif partition_due:
+            self._event_phase = "D"
+            sso_f = (yield (self.map.sso.clone(),))[0]
+        if partition_due:
+            self._area_host = self._apply_partition(sso_f)
+        # the generator body always runs under _advance_head with its own
+        # counter swapped in, so this reads the event's exact dispatch count
+        ev["kf_dispatches"] = self._cur_counter[0]
+        self.kf_event_dispatches.append(self._cur_counter[0])
+
+    def _apply_partition(self, sso_f) -> list[int]:
+        """The periodic topological partition of a keyframe event, on the
+        SSO snapshot `sso_f` (on the host) the event fetched; returns the
+        live keyframes' areas.  Keyframes promoted after the snapshot was
+        taken may lie beyond it (a promotion at a full map grows the map
+        under the event): only the `min(n_kf, len(sso_f))` keyframes it
+        covers are partitioned, and every later keyframe keeps its current
+        area."""
+        n_kf = self._n_kf_host
+        n_cov = min(n_kf, sso_f.shape[0])
+        with self.timer.region("partition", n_kf=n_cov):
+            area, n_areas = partition_map(
+                self.map, self.config.map.sso_partition_threshold, sso=sso_f, n_kf=n_cov
+            )
+            if n_cov < n_kf:
+                later = self.map.area[n_cov:n_kf].cpu().numpy()
+                area[n_cov:n_kf] = later
+                n_areas = max(n_areas, int(later.max()) + 1)
+            self.map.area.copy_(torch.from_numpy(area))
+            self.map.n_areas.fill_(n_areas)
+        return [int(a) for a in area[:n_kf]]
+
+
 def _connection_kernel(opt_poses, n_kf, area, n_areas, edges_ij, emask, k: int, radius: float):
     """Device-side connection-candidate selection (reference
     `KFsphere_SLAM.cpp:405-461`): same/neighbor-area keyframes within the
@@ -562,7 +741,7 @@ def _connection_kernel(opt_poses, n_kf, area, n_areas, edges_ij, emask, k: int, 
     return top_i, top_s > -torch.inf, seeds
 
 
-class KeyframeSLAM(TrackerBase):
+class KeyframeSLAM(MapTrackerBase):
     """Keyframe SLAM with dense tracking, loop closure and pose-graph
     optimization, on one device or (`mesh`) sharded over ranks.
 
@@ -599,7 +778,6 @@ class KeyframeSLAM(TrackerBase):
                 f"map capacities ({cfg.map.max_keyframes} KFs, {cfg.map.max_edges} edges) "
                 f"must divide by the mesh size ({mesh.size})"
             )
-        self.map = self._empty_map()
         # connection aligns start `kf.connection_coarse_level` pyramid
         # levels below full resolution: one level down is 4x fewer rows at
         # a few mm of extra error, ample for auxiliary graph edges
@@ -618,41 +796,14 @@ class KeyframeSLAM(TrackerBase):
         )
         self.loop_closer = LoopCloser(cfg, mesh=mesh)
         self.relocalizer = Relocalizer(cfg, mesh=mesh)
-        self._reset_state()
+        self._reset_tracking()
 
-    def _empty_map(self) -> Map360:
-        cfg = self.config
-        return Map360.empty(
-            cfg.map, cfg.sphere.height, cfg.sphere.width, cfg.seg.max_planes,
-            cfg.seg.hull_dirs, self.device,
-        )
-
-    def _reset_state(self) -> None:
+    def _reset_tracking(self) -> None:
+        """The tracking state of a tracker with an empty map."""
         self.current_kf = -1
         self.kf_state: FrameState | None = None
-        # host mirror of the optimized pose array: per-frame policy reads
-        # (keyframe pose, trajectory anchors) would otherwise cost a copy
-        # from the device EACH, and a wait on all queued work.  Invalidated
-        # by whatever changes the optimized poses (optimize, resume).
-        self._opt_poses_host: np.ndarray | None = None
-        # keyframe payloads do not change -> their pyramids are memoized
-        self._kf_pyr_cache: dict = {}
-        # host mirror of the graph's edge pairs, kept incrementally
-        self._edge_set: set[tuple[int, int]] = set()
-        # host mirrors of the live counts and the area ids: reading
-        # `int(map.n_kf)` waits for every queued launch
-        self._n_kf_host = 0
-        self._n_edges_host = 0
-        self._area_host: list[int] = []
-        self._pending.clear()
-        self._poll_counter = 0
-        self._cur_counter = [0]
-        self.kf_event_dispatches = []
         self.pose = np.eye(4)  # current frame world pose
-        self.trajectory: list[np.ndarray] = []
         self.lost = False
-        self.n_loop_closures = 0
-        self.events: list[dict] = []
         # constant-velocity motion model: pose of the last tracked frame
         # relative to the current KF, and the last accepted frame-to-frame
         # step; their composition predicts the next frame's T_kf<-new
@@ -671,70 +822,27 @@ class KeyframeSLAM(TrackerBase):
 
     def reset(self) -> None:
         """Clear the map, the trajectory and the tracking state."""
-        self.map = self._empty_map()
-        self._reset_state()
+        self._clear()
+        self._reset_tracking()
         self.timer.reset()
-
-    def _opt_pose(self, k: int) -> np.ndarray:
-        """Optimized pose of keyframe k from the host mirror (one bulk copy
-        per invalidation instead of one per read)."""
-        if self._opt_poses_host is None:
-            self._opt_poses_host = self.map.opt_poses.cpu().numpy()
-        return self._opt_poses_host[k]
 
     def _add_keyframe(self, state: FrameState, pose: np.ndarray) -> int:
         self._event_backpressure()
         self._cur_counter = [0]  # the event's dispatch count starts here
-        k = self._n_kf_host
-        # a new keyframe joins its tracking parent's topological area; the
+        # a new keyframe joins its tracking parent's topological area (read
+        # after the backpressure drain, whose partition may move it); the
         # periodic partitioner refines the assignment (reference
         # `TopologicalMap360::addKeyframe`, `TopologicalMap360.h:81`)
         area_id = self._area_host[self.current_kf] if self.current_kf >= 0 else 0
-        self._area_host.append(area_id)
-        self.map = self.map.add_keyframe(
-            pose, state.sphere.sphere_gray, state.sphere.sphere_depth, state.planes,
-            area_id=area_id, n_live=k,
-        )
-        self._nd()
-        self._n_kf_host = k + 1
+        k = super()._add_keyframe(state, pose, area_id)
         self.current_kf = k
         self.kf_state = state
-        # update the host pose mirror IN PLACE (the new KF's optimized pose
-        # IS its trajectory pose): invalidating would make the next
-        # `_opt_pose` read wait for every queued launch
-        if self._opt_poses_host is not None and k < len(self._opt_poses_host):
-            self._opt_poses_host[k] = np.asarray(pose)
-        else:
-            self._opt_poses_host = None
-        self._kf_pyr_cache[k] = state.pyramid
         # the new KF IS the last tracked frame; the frame-to-frame step of
         # the motion model remains valid across the reference switch
         self.track_rel = np.eye(4)
         # any retained promotion candidate was relative to the old KF
         self._last_frame = None
         return k
-
-    def _add_edge(self, i: int, j: int, rel, info, sso=0.0, is_loop=False):
-        """Add a graph edge and mirror the pair host-side."""
-        self._add_edges([(i, j, rel, info, sso, is_loop)])
-
-    def _add_edges(self, edges: list[tuple]) -> None:
-        """Add a batch of (i, j, rel, info, sso, is_loop) edges in ONE map
-        update (`Map360.add_edges`) and mirror the pairs host-side."""
-        if not edges:
-            return
-        ij = np.asarray([(int(i), int(j)) for i, j, *_ in edges], np.int32)
-        self.map = self.map.add_edges(
-            ij,
-            np.stack([np.asarray(e[2], np.float32) for e in edges]),
-            np.stack([np.asarray(e[3], np.float32) for e in edges]),
-            np.asarray([float(e[4]) for e in edges], np.float32),
-            np.asarray([bool(e[5]) for e in edges]),
-            n_live=self._n_edges_host,
-        )
-        self._nd()
-        self._n_edges_host += len(edges)
-        self._edge_set.update((int(i), int(j)) for i, j in ij)
 
     def _promote(self, state: FrameState, pose: np.ndarray, prev_kf: int,
                  edges: list[tuple], ev: dict) -> tuple[int, bool]:
@@ -745,7 +853,7 @@ class KeyframeSLAM(TrackerBase):
         k = self._add_keyframe(state, pose)
         ev["keyframe"] = True
         self._add_edges([(prev_kf, k, r, i, s, l) for r, i, s, l in edges])
-        return k, self._post_keyframe(state, k, ev)
+        return k, self._post_keyframe(self._kf_event_gen(state, k, ev), k, ev)
 
     # --------------------------------------------------- checkpoint/resume
 
@@ -853,7 +961,7 @@ class KeyframeSLAM(TrackerBase):
             self._ref_photo = float(res.av_photo_residual)
         return (healthy and small_rot) or small_motion
 
-    def _optimize_dispatch(self):
+    def _solve_graph(self):
         """The pose-graph solve; returns (poses, chi2) on the device and the
         iteration count.  With a mesh, the distributed LM-PCG; otherwise
         the solver is chosen by the map's CAPACITY: dense LM up to
@@ -1141,30 +1249,13 @@ class KeyframeSLAM(TrackerBase):
             self.pose = self._opt_pose(k)
         return self._emit(ev)
 
-    _connection_kernel = staticmethod(_connection_kernel)
-
-    def _post_keyframe(self, state: FrameState, k: int, ev: dict) -> bool:
-        """Per-new-keyframe map work: neighbor connections, loop-closure
-        search, pose-graph optimization, topological partitioning, as a
-        phased pipeline (`_kf_event_gen`).  With `kf.async_kf_events`
-        (default) the pipeline is DEFERRED: later frames drain it via
-        `_poll_pending`, so tracking does not wait for the event.
-        Synchronous mode drains here and returns True when optimization ran
-        (the caller refreshes poses read from the map afterwards); async
-        always returns False: optimized poses apply on a later frame."""
-        self._enqueue_event(self._kf_event_gen(state, k, ev), k)
-        if self.config.kf.async_kf_events:
-            self._poll_pending()
-            return False
-        self._drain_pending("sync")
-        return ev.get("optimized", False)
-
     def _kf_event_gen(self, state: FrameState, k: int, ev: dict):
-        """Keyframe-event pipeline as a generator: each `yield` hands the
-        device tensors the next phase needs to `_poll_pending`, which
-        resumes the generator with their host values once they are ready
-        (or at once when draining).  One code path serves both sync and
-        async modes."""
+        """Keyframe k's event as a generator: neighbor connections, the
+        loop-closure search and its verification, then the shared graph
+        update (`_graph_update`).  Each `yield` hands the device tensors the
+        next phase needs to `_poll_pending`, which resumes the generator
+        with their host values once they are ready (or at once when
+        draining).  One code path serves both sync and async modes."""
         kf_cfg = self.config.kf
 
         # ---- phase A: connection-candidate selection + LC scan.
@@ -1211,26 +1302,12 @@ class KeyframeSLAM(TrackerBase):
                 [seed for _, seed in cands],
             )
             self._nd()
-        lc_cand: list = []
-        lc_pose: dict = {}
-        verify_res = cand_pyrs = None
-        if scan_f is not None:
-            with self.timer.region("loop_closure"):
-                lc_cand, lc_pose = self.loop_closer.select_host(scan_f)
-                if lc_cand:
-                    # the tracker's own (seam-masked) pyramid serves as
-                    # the query: the front end already built it
-                    verify_res, cand_pyrs = self.loop_closer.verify_dispatch(
-                        self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache,
-                        self.timer,
-                    )
-                    self._nd()
+        lc_cand, lc_pose, verify_res, cand_pyrs = self._verify_closures(state, scan_f)
         # ---- phase C: gate fetched results (ONE combined fetch); rescue
-        # failed LC candidates; add the edge slate in ONE update
+        # failed LC candidates in ONE phase
         self._event_phase = "C"
         res_f, vf = yield (conn_res, verify_res)
-        new_edges: list[tuple] = []
-        n_connections = 0
+        edges: list[tuple] = []
         if res_f is not None:
             for i, (kf, _) in enumerate(cands):
                 res2 = D._result_item(res_f, i)
@@ -1238,80 +1315,15 @@ class KeyframeSLAM(TrackerBase):
                     not bool(res2.ill_posed)
                     and float(res2.av_depth_residual) < kf_cfg.max_connection_residual
                 ):
-                    new_edges.append(
+                    edges.append(
                         (kf, k, res2.pose.numpy(), res2.hessian.numpy(), float(res2.sso), False)
                     )
-                    n_connections += 1
-        ev["connections"] = ev.get("connections", 0) + n_connections
-
-        lcs = []
-        failures = []
-        if vf is not None:
-            for i, kf in enumerate(lc_cand):
-                res = D._result_item(vf, i)
-                if self.loop_closer.gates_ok(res, self._ref_photo):
-                    lcs.append(self.loop_closer.accept(res, kf, k))
-                else:
-                    failures.append((i, kf))
-        # heading rescue for yaw-aliased plane seeds: ALL failed candidates
-        # run their coarse-sweep + argmin + verify in ONE phase (one
-        # combined fetch)
-        if failures:
-            res_rs = tuple(
-                self.loop_closer.rescue_fused_dispatch(state.pyramid, cand_pyrs[i], lc_pose[kf])
-                for i, kf in failures
-            )
-            self._nd(len(failures))
-            self._event_phase = "rescue"
-            res_rs_f = yield res_rs
-            for (i, kf), res_r in zip(failures, res_rs_f):
-                if self.loop_closer.gates_ok(res_r, self._ref_photo):
-                    lcs.append(self.loop_closer.accept(res_r, kf, k))
-        for lc in lcs:
-            new_edges.append((lc.kf_from, lc.kf_to, lc.rel, lc.info, lc.sso, True))
-        ev["loop_closures"] = ev.get("loop_closures", 0) + len(lcs)
-        self.n_loop_closures += len(lcs)
-        self._add_edges(new_edges)
-
+        ev["connections"] = ev.get("connections", 0) + len(edges)
+        self._event_phase = "rescue"
+        lcs, n_rescues = yield from self.loop_closer.gate_and_rescue(
+            vf, state.pyramid, lc_cand, lc_pose, cand_pyrs, k, self._ref_photo
+        )
+        self._nd(n_rescues)
         # ---- phase D: optimize whenever the graph gained a non-odometry
-        # constraint; apply the optimized poses once the solve has
-        # finished.  The periodic partition (reference :710-717, a host
-        # spectral solve over the fetched SSO) shares D's wait point.
-        optimized = bool(lcs or n_connections)
-        # the event's OWN keyframe index decides the partition cadence (the
-        # live count would drift when queued events complete late)
-        partition_due = (k + 1) % self.config.map.partition_every_n_kf == 0
-        sso_f = None
-        if optimized:
-            n0 = self._n_kf_host  # keyframes the solve covers
-            with graph_solve_region(self.timer, n0, self.config.graph.dtype):
-                poses, chi2, _ = self._optimize_dispatch()
-            self._nd()
-            # the map is updated in place: the SSO matrix this event's
-            # partition reads is the one of NOW, so it is cloned here (a
-            # keyframe promoted before the next phase writes its edge's
-            # entry into the map's)
-            self._event_phase = "D"
-            if partition_due:  # ONE combined fetch
-                chi2_f, sso_f = yield (chi2, self.map.sso.clone())
-            else:
-                chi2_f = (yield (chi2,))[0]
-            # apply only the first n0 poses: a keyframe promoted while the
-            # solve was pending occupies a LATER slot, whose value in
-            # `poses` is the pre-promotion padding
-            if self._n_kf_host > n0:
-                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:].to(poses.dtype)])
-                self._nd()
-            self.map = self.map.with_optimized(poses)
-            self._opt_poses_host = None
-            ev["chi2"] = float(chi2_f)
-            ev["optimized"] = True
-        elif partition_due:
-            self._event_phase = "D"
-            sso_f = (yield (self.map.sso.clone(),))[0]
-        if partition_due:
-            self._area_host = self._apply_partition(sso_f)
-        # the generator body always runs under _advance_head with its own
-        # counter swapped in, so this reads the event's exact dispatch count
-        ev["kf_dispatches"] = self._cur_counter[0]
-        self.kf_event_dispatches.append(self._cur_counter[0])
+        # constraint; the periodic partition
+        yield from self._graph_update(k, ev, edges, lcs)

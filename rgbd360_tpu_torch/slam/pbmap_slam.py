@@ -13,7 +13,11 @@ keyframe run as an event on the deferred keyframe-event engine of
 `SLAM/SphereGraphSLAM.cpp:141`, `include/LoopClosure360.h:93,108`): with
 `kf.async_kf_events` (default) a keyframe frame only DISPATCHES the scan,
 and verification, edges, optimization and partitioning complete over later
-frames; synchronous mode drains inline.
+frames; synchronous mode drains inline.  The event's generator keeps what
+is this tracker's own (the scan's condition, pose and snapshots); its
+verification, gate and rescue, graph update and partition are the steps
+`KeyframeSLAM`'s event runs too (`odometry.MapTrackerBase`,
+`LoopCloser.gate_and_rescue`).
 
 The map is updated in place (`slam/map.py`), so what an event keeps across
 a later update it clones (the SSO snapshot of its partition) or applies as
@@ -29,21 +33,14 @@ import torch
 
 from rgbd360_tpu_torch.config import FrameworkConfig
 from rgbd360_tpu_torch.core.frame import FrameBuilder
-from rgbd360_tpu_torch.registration import dense as D
 from rgbd360_tpu_torch.registration.planes import PLANAR_ODOMETRY_3DOF
 from rgbd360_tpu_torch.slam.graph import optimize_pose_graph
 from rgbd360_tpu_torch.slam.loop_closure import LoopCloser
-from rgbd360_tpu_torch.slam.map import Map360
-from rgbd360_tpu_torch.slam.odometry import (
-    TrackerBase,
-    graph_solve_region,
-    is_motion_continuous,
-    traced_frame,
-)
+from rgbd360_tpu_torch.slam.odometry import MapTrackerBase, is_motion_continuous, traced_frame
 from rgbd360_tpu_torch.utils.host import fetch
 
 
-class PbMapGraphSLAM(TrackerBase):
+class PbMapGraphSLAM(MapTrackerBase):
     def __init__(
         self,
         builder: FrameBuilder,
@@ -51,42 +48,19 @@ class PbMapGraphSLAM(TrackerBase):
         track_depth: int = 5,
     ):
         super().__init__(builder, config)
-        cfg = self.config
         self.track_depth = track_depth
-        self.map = Map360.empty(
-            cfg.map, cfg.sphere.height, cfg.sphere.width, cfg.seg.max_planes,
-            cfg.seg.hull_dirs, self.device,
-        )
-        self.loop_closer = LoopCloser(cfg)
-        self.trajectory: list[np.ndarray] = []
+        self.loop_closer = LoopCloser(self.config)
         self.no_assoc = 0
-        self.n_loop_closures = 0
-        self.events: list[dict] = []
-        # host mirrors: reading `int(map.n_kf)` or a pose waits for every
-        # queued launch, the deferred event's too
-        self._n_kf_host = 0
-        self._n_edges_host = 0
-        self._opt_poses_host: np.ndarray | None = None
-        self._kf_pyr_cache: dict = {}
 
-    def _opt_pose(self, k: int) -> np.ndarray:
-        if self._opt_poses_host is None:
-            self._opt_poses_host = self.map.opt_poses.cpu().numpy()
-        return self._opt_poses_host[k]
-
-    def _add_kf(self, state, pose: np.ndarray) -> int:
-        k = self._n_kf_host
-        self.map = self.map.add_keyframe(
-            pose, state.sphere.sphere_gray, state.sphere.sphere_depth, state.planes, n_live=k,
+    def _solve_graph(self):
+        """The pose-graph solve: dense LM at the configuration's precision
+        (`graph.dtype`); (poses, chi2, iterations) on the device."""
+        g = self.config.graph
+        return optimize_pose_graph(
+            self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
+            loop_mask=self.map.edge_is_lc if g.robust_lc else None,
+            dcs_phi=g.dcs_phi, dtype=g.dtype,
         )
-        self._nd()
-        self._n_kf_host = k + 1
-        if self._opt_poses_host is not None and k < len(self._opt_poses_host):
-            self._opt_poses_host[k] = np.asarray(pose)
-        else:
-            self._opt_poses_host = None
-        self._kf_pyr_cache[k] = state.pyramid
-        return k
 
     @traced_frame
     def process(self, raw) -> dict:
@@ -102,7 +76,7 @@ class PbMapGraphSLAM(TrackerBase):
         self._poll_pending()
         n_kf = self._n_kf_host
         if n_kf == 0:
-            self._add_kf(state, np.eye(4))
+            self._add_keyframe(state, np.eye(4), 0)
             self.trajectory.append(np.eye(4))
             ev.update(keyframe=True, tracked=True)
             self.events.append(ev)
@@ -137,49 +111,39 @@ class PbMapGraphSLAM(TrackerBase):
         pose = self._opt_pose(ref_kf) @ rel
         self._event_backpressure()
         self._cur_counter = [0]
-        k = self._add_kf(state, pose)
+        # every keyframe joins area 0 until a partition moves it
+        k = self._add_keyframe(state, pose, 0)
         sso = float(pb.area_matched) / max(area, 1e-6)
-        self.map = self.map.add_edge(
-            ref_kf, k, pb.pose, pb.information, sso=min(sso, 1.0), n_live=self._n_edges_host,
-        )
-        self._nd()
-        self._n_edges_host += 1
+        self._add_edges([(ref_kf, k, pb.pose, pb.information, min(sso, 1.0), False)])
         ev.update(keyframe=True, tracked=True, ref_kf=ref_kf, matches=int(pb.n_matches))
 
         gen = self._kf_event_gen(state, k, np.asarray(pose), ev, n_edges_snapshot=self._n_edges_host)
-        self._enqueue_event(gen, k)
-        if self.config.kf.async_kf_events:
-            self._poll_pending()
-        else:
-            self._drain_pending("sync")
-            if ev.get("optimized"):
-                pose = self._opt_pose(k)
-
+        if self._post_keyframe(gen, k, ev):
+            pose = self._opt_pose(k)
         self.trajectory.append(np.asarray(pose))
         self.events.append(ev)
         return ev
 
     def _kf_event_gen(self, state, k: int, kf_pose: np.ndarray, ev: dict,
                       n_edges_snapshot: int | None = None):
-        """The SphereGraphSLAM keyframe event: LC scan -> verify -> edges ->
-        optimize -> partition, as a phased generator on the shared deferred
+        """The SphereGraphSLAM keyframe event: LC scan -> verify -> gate and
+        rescue, then the shared graph update (`_graph_update`: closure edges,
+        optimize, partition), as a phased generator on the shared deferred
         engine (the reference's LC thread body, `LoopClosure360.h:108-366`,
         and the app's inline optimize).  The snapshot caps pin the scan to
         the map state the event was created against, so the deferred scan
         matches the synchronous one exactly (see `scan_dispatch`).  Its
         phases are named after `KeyframeSLAM`'s (A scan, B verify, C gate,
-        rescue, D optimize and partition)."""
-        lc = self.loop_closer
-        timer = self.timer
-
+        rescue, D optimize and partition); its closures meet no photometric
+        gate."""
         # ---- phase A: dispatch the LC candidate scan (device-side gate,
         # batched plane match, top-k select)
         scan = None
         # event-indexed condition (k is fixed at creation; _n_kf_host may
         # have advanced by the time a deferred generator body runs)
         if k + 1 > 3:  # the scan excludes the 2 most recent KFs
-            with timer.region("loop_closure"):
-                scan = lc.scan_dispatch(
+            with self.timer.region("loop_closure"):
+                scan = self.loop_closer.scan_dispatch(
                     self.map, state.planes, kf_pose, k,
                     n_kf_snapshot=k + 1, n_edges_snapshot=n_edges_snapshot,
                 )
@@ -188,85 +152,14 @@ class PbMapGraphSLAM(TrackerBase):
         # verification (the fetch is owned by the poller)
         self._event_phase = "B"
         scan_f = (yield (scan,))[0]
-        lc_cand: list = []
-        lc_pose: dict = {}
-        verify_res = cand_pyrs = None
-        if scan_f is not None:
-            with timer.region("loop_closure"):
-                lc_cand, lc_pose = lc.select_host(scan_f)
-                if lc_cand:
-                    verify_res, cand_pyrs = lc.verify_dispatch(
-                        self.map, state.pyramid, lc_cand, lc_pose, self._kf_pyr_cache, timer,
-                    )
-                    self._nd()
-        # ---- phase C: gate, rescue yaw-aliased seeds, add accepted edges
+        lc_cand, lc_pose, verify_res, cand_pyrs = self._verify_closures(state, scan_f)
+        # ---- phase C: gate, rescue yaw-aliased seeds in ONE phase
         self._event_phase = "C"
         vf = (yield (verify_res,))[0]
-        lcs = []
-        failures = []
-        if vf is not None:
-            for i, kf in enumerate(lc_cand):
-                res = D._result_item(vf, i)
-                if lc.gates_ok(res, None):
-                    lcs.append(lc.accept(res, kf, k))
-                else:
-                    failures.append((i, kf))
-        # all failed candidates rescue in ONE phase: the fused coarse sweep,
-        # device-side argmin and verify per candidate, one combined fetch
-        if failures:
-            res_rs = tuple(
-                lc.rescue_fused_dispatch(state.pyramid, cand_pyrs[i], lc_pose[kf])
-                for i, kf in failures
-            )
-            self._nd(len(failures))
-            self._event_phase = "rescue"
-            res_rs_f = yield res_rs
-            for (i, kf), res_r in zip(failures, res_rs_f):
-                if lc.gates_ok(res_r, None):
-                    lcs.append(lc.accept(res_r, kf, k))
-        for lc_ in lcs:
-            self.map = self.map.add_edge(
-                lc_.kf_from, lc_.kf_to, lc_.rel, lc_.info, sso=lc_.sso, is_loop=True,
-                n_live=self._n_edges_host,
-            )
-            self._nd()
-            self._n_edges_host += 1
-        ev["loop_closures"] = ev.get("loop_closures", 0) + len(lcs)
-        self.n_loop_closures += len(lcs)
-
+        self._event_phase = "rescue"
+        lcs, n_rescues = yield from self.loop_closer.gate_and_rescue(
+            vf, state.pyramid, lc_cand, lc_pose, cand_pyrs, k, None
+        )
+        self._nd(n_rescues)
         # ---- phase D: optimize on new loop closures; periodic partition
-        # (the map is updated in place: the SSO the partition reads is
-        # cloned at the yield, see `_apply_partition`)
-        partition_due = (k + 1) % self.config.map.partition_every_n_kf == 0
-        sso_f = None
-        if lcs:
-            g = self.config.graph
-            n0 = self._n_kf_host  # keyframes the dispatched solve covers
-            with graph_solve_region(timer, n0, g.dtype):
-                poses, chi2, _ = optimize_pose_graph(
-                    self.map.graph, g.max_iters, g.lm_lambda0, g.lm_step,
-                    loop_mask=self.map.edge_is_lc if g.robust_lc else None,
-                    dcs_phi=g.dcs_phi, dtype=g.dtype,
-                )
-            self._nd()
-            self._event_phase = "D"
-            if partition_due:  # one combined fetch
-                chi2_f, sso_f = yield (chi2, self.map.sso.clone())
-            else:
-                chi2_f = (yield (chi2,))[0]
-            # prefix-safe application: keyframes promoted while the solve
-            # was in flight occupy later slots the solve never covered
-            if self._n_kf_host > n0:
-                poses = torch.cat([poses[:n0], self.map.opt_poses[n0:].to(poses.dtype)])
-                self._nd()
-            self.map = self.map.with_optimized(poses)
-            self._opt_poses_host = None
-            ev["chi2"] = float(chi2_f)
-            ev["optimized"] = True
-        elif partition_due:
-            self._event_phase = "D"
-            sso_f = (yield (self.map.sso.clone(),))[0]
-        if partition_due:
-            self._apply_partition(sso_f)
-        ev["kf_dispatches"] = self._cur_counter[0]
-        self.kf_event_dispatches.append(self._cur_counter[0])
+        yield from self._graph_update(k, ev, [], lcs)

@@ -37,6 +37,7 @@ import torch
 
 from rgbd360_tpu_torch import synthetic
 from rgbd360_tpu_torch.core.frame import FrameBuilder
+from rgbd360_tpu_torch.slam import odometry
 from rgbd360_tpu_torch.slam.odometry import KeyframeSLAM, TrackerBase
 
 from test_torch_segmentation import one_torch_thread  # noqa: F401
@@ -97,7 +98,7 @@ def _stub(log, name, phases):
 
 
 def _enqueue(tracker, gen):
-    tracker._pending.append((gen, None, [0], None))
+    tracker._pending.append(odometry._Event(gen, None, [0], None))
 
 
 def test_engine_advances_head_only_and_drains(builder):
@@ -146,7 +147,7 @@ def test_engine_attributes_dispatches_to_the_advancing_event(builder):
         t._nd(n)
 
     for c, n in zip(counters, (1, 10)):
-        t._pending.append((gen(n), None, c, None))
+        t._pending.append(odometry._Event(gen(n), None, c, None))
     own = t._cur_counter
     t.flush()
     assert counters == ([2], [20]) and t._cur_counter is own and own == [0]

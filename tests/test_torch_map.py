@@ -136,6 +136,21 @@ def test_add_edge_and_add_edges():
     assert int(tm.n_edges) == 4
     # an empty batch changes nothing
     assert tm.add_edges(np.zeros((0, 2), np.int32), rel[:0], info[:0], ssos[:0], lcs[:0], 4) is tm
+    # n sequential `add_edge`s and one `add_edges` of the same edges (a
+    # keyframe event's closures) give the same map, also where the batch
+    # crosses the edge capacity (4 live edges of 6)
+    rel, info = _edges(rng, 3)
+    ij = np.array([[0, 2], [1, 2], [0, 1]], np.int32)
+    ssos, lcs = np.float32([0.125, 0.5, 0.75]), np.array([True, True, False])
+    for n_new, capacity in ((1, 6), (3, 12)):
+        seq, one = (TMap.from_numpy(tm.to_numpy(), tm) for _ in range(2))
+        for e in range(n_new):
+            seq = seq.add_edge(int(ij[e, 0]), int(ij[e, 1]), rel[e], info[e], sso=float(ssos[e]),
+                               is_loop=bool(lcs[e]), n_live=4 + e)
+        one = one.add_edges(ij[:n_new], rel[:n_new], info[:n_new], ssos[:n_new], lcs[:n_new],
+                            n_live=4)
+        assert seq.edge_capacity == one.edge_capacity == capacity
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(seq), tree_leaves(one)))
 
 
 def test_add_edges_grows_the_edge_axis_only():
